@@ -1,0 +1,464 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one CUDA card: build, check, drive, time.
+
+    python3 chip_smoke.py [--out results.json]
+
+Phases, in order; any failure exits non-zero before the result lines:
+
+1. The card (``nvidia-smi`` name and power limit), versions, and the build of
+   the port's CUDA kernels from ``fullbatchtraining_tpu_torch/ops/csrc``
+   (``nvcc -Xptxas -v``: registers and spills per kernel).
+2. Every kernel against its plain PyTorch version at ResNet-18/CIFAR's BN
+   shapes for a chunk of 2048 images (the bench shape), in float32 and
+   bfloat16, plus BNTrain forward+backward; times of kernel, plain version,
+   the one-call PyTorch equivalent (the CUDA batch-norm functions that
+   SyncBatchNorm calls; ``F.batch_norm`` for ``apply`` and BNTrain), and the
+   bound (bytes each function must move over 3.35 TB/s).
+3. One float32 full-batch step of the main path (ResNet-18, 8192 images in
+   chunks of 512) with the kernels, and the same step under
+   ``ops.bn.plain_versions()``: loss, gradient norm, parameters and running
+   stats must agree.
+4. The main path at full width through ``training.train``, the function
+   ``python -m fullbatchtraining_tpu_torch`` calls: ``model=resnet18
+   data=CIFAR10 hyp=fb1``, 3 steps over 50,000 synthetic images in chunks of
+   2048 under bf16 autocast. Launch counts must show every kernel on the path.
+5. One more full-width step under ``torch.profiler``, after a warm-up step:
+   device time by kernel class, and the device's busy share: that step's
+   device time over the wall time of the next step, run without the
+   profiler (the profiler's own host work stretches the traced step).
+
+The last lines are the card line, a JSON object of per-kernel numbers (their
+``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` sum the 20 BN layers of
+one bf16 chunk of 2048 images; ``launches`` counts phase 4), and
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM, published
+DEVICE = "cuda"
+CHUNK = 2048                       # images per chunk at the bench shape
+STAGES = [(1024, 64), (256, 128), (64, 256), (16, 512)]  # (H*W, C) per ResNet-18 stage
+LAYERS_PER_STAGE = 5
+BN_LAYERS = LAYERS_PER_STAGE * len(STAGES)   # 20 BatchNorms in ResNet-18
+SOURCE = "fullbatchtraining_tpu_torch/ops/csrc/bn_kernels.cu"
+REPLACES = {"stats": "fullbatchtraining_tpu/ops/pallas_bn.py:88",
+            "apply": "fullbatchtraining_tpu/ops/pallas_bn.py:97",
+            "bwd_reduce": "fullbatchtraining_tpu/ops/pallas_bn.py:102",
+            "bwd_apply": "fullbatchtraining_tpu/ops/pallas_bn.py:112"}
+# bytes each kernel must move per element of x ([M, C]): inputs read once,
+# outputs written once ([C]-sized operands are negligible). All of them are
+# memory-bound: a few operations per element stay far below the card's rate.
+BYTES_PER_ELEMENT = {"stats": 1, "apply": 2, "bwd_reduce": 2, "bwd_apply": 3, "bn_train": 4}
+SUM_TOL = 1e-5        # reductions: error / sum of |terms| (float32 sums, any order)
+ULP = {"float32": 2.0 ** -23, "bfloat16": 2.0 ** -7}
+BN_TRAIN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # error / max |plain output|
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(torch, fn, iters=30, warmup=3) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(name, m, c, itemsize) -> float:
+    return 1e3 * BYTES_PER_ELEMENT[name] * m * c * itemsize / HBM_BYTES_PER_S
+
+
+def check(cond, what):
+    if not cond:
+        raise AssertionError(what)
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def phase_kernels(torch, bn):
+    import torch.nn.functional as F
+
+    rows = []
+    dev = torch.device(DEVICE)
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        for hw, c in STAGES:
+            m = CHUNK * hw
+            g = torch.Generator(device=dev).manual_seed(hw + c)
+            x = (torch.randn((m, c), generator=g, device=dev) * 1.5 + 0.3).to(dtype)
+            dy = torch.randn((m, c), generator=g, device=dev).to(dtype)
+            ab = torch.randn((2, c), generator=g, device=dev)
+            coef = torch.randn((3, c), generator=g, device=dev)
+            with bn.plain_versions():
+                plain = {"stats": bn.stats(x), "bwd_reduce": bn.bwd_reduce(dy, x),
+                         "apply": bn.apply(x, ab), "bwd_apply": bn.bwd_apply(dy, x, coef)}
+                scale = {"stats": bn.stats(x.abs()),
+                         "bwd_reduce": bn.bwd_reduce(dy.abs(), x.abs()),
+                         "apply": (x.float() * ab[0]).abs() + ab[1].abs(),
+                         "bwd_apply": ((dy.float() * coef[0]).abs() + coef[1].abs()
+                                       + (x.float() * coef[2]).abs())}
+            calls = {"stats": lambda: bn.stats(x), "bwd_reduce": lambda: bn.bwd_reduce(dy, x),
+                     "apply": lambda: bn.apply(x, ab),
+                     "bwd_apply": lambda: bn.bwd_apply(dy, x, coef)}
+            library = library_calls(torch, F, x, dy, ab, hw, c)
+            for name, call in calls.items():
+                out = call()
+                torch.cuda.synchronize()
+                err = (out.double() - plain[name].double()).abs()
+                if name in ("stats", "bwd_reduce"):
+                    rel = (err / scale[name].double().clamp_min(1e-30)).max().item()
+                    ok = rel <= SUM_TOL
+                    tol = f"{SUM_TOL:g} of sum|terms|"
+                else:
+                    size = scale[name].double() + plain[name].double().abs()
+                    rel = (err / size.clamp_min(1e-30)).max().item()
+                    ok = rel <= 2 * ULP[dtype_name]
+                    tol = f"2 ulp of {dtype_name} relative to the terms"
+                with bn.plain_versions():
+                    plain_ms = cuda_ms(torch, call)
+                row = {"kernel": name, "dtype": dtype_name, "m": m, "c": c,
+                       "max_abs_err": err.max().item(), "max_rel_err": rel, "tolerance": tol,
+                       "ms": cuda_ms(torch, call), "plain_ms": plain_ms,
+                       "library_ms": cuda_ms(torch, library[name]),
+                       "bound_ms": bound_ms(name, m, c, x.element_size())}
+                rows.append(row)
+                log(f"  {name:10s} {dtype_name:8s} M={m:8d} C={c:3d} "
+                    f"max_abs_err={row['max_abs_err']:.3e} rel={rel:.2e} (tol {tol}) "
+                    f"kernel {row['ms']:.4f} ms  plain {plain_ms:.4f} ms  "
+                    f"library {row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms")
+                check(ok, f"{name} {dtype_name} M={m} C={c} disagrees with its plain version")
+            rows.append(phase_bn_train(torch, bn, F, x, dy, dtype_name, hw, c))
+            del x, dy, plain, scale, calls, library
+            torch.cuda.empty_cache()
+    return rows
+
+
+def library_calls(torch, F, x, dy, ab, hw, c):
+    """One PyTorch call per kernel computing the same function on the same
+    [N, C, H, W] channels_last views: the CUDA batch-norm functions that
+    SyncBatchNorm calls, and eval-mode ``F.batch_norm`` for ``apply``. They
+    are yardsticks, timed here only; the port never calls them."""
+    side = math.isqrt(hw)
+    xl = x.view(CHUNK, side, side, c).permute(0, 3, 1, 2)
+    dyl = dy.view(CHUNK, side, side, c).permute(0, 3, 1, 2)
+    # per-channel mean and invstd: the statistics of (sum x, sum x^2)
+    mean, invstd = torch.batch_norm_stats(xl, 1e-5)
+    # sum dy and sum dy*(x - mean): bwd_reduce's s1 and s2 - mean*s1
+    sum_dy, sum_dy_xmu, _, _ = torch.batch_norm_backward_reduce(
+        dyl, xl, mean, invstd, ab[0], True, False, False)
+    count = torch.full((1,), x.shape[0], dtype=torch.int32, device=x.device)
+    # eval-mode batch_norm with mean 0 and var 1 - eps is y = ab[0]*x + ab[1]
+    zero = torch.zeros(c, device=x.device)
+    one = torch.full((c,), 1 - 1e-5, device=x.device)
+    return {
+        "stats": lambda: torch.batch_norm_stats(xl, 1e-5),
+        "apply": lambda: F.batch_norm(xl, zero, one, ab[0], ab[1], training=False, eps=1e-5),
+        "bwd_reduce": lambda: torch.batch_norm_backward_reduce(
+            dyl, xl, mean, invstd, ab[0], True, False, False),
+        # the per-channel affine dx of the full BN backward, as bwd_apply
+        "bwd_apply": lambda: torch.batch_norm_backward_elemt(
+            dyl, xl, mean, invstd, ab[0], sum_dy, sum_dy_xmu, count),
+    }
+
+
+def phase_bn_train(torch, bn, F, x, dy, dtype_name, hw, c):
+    """BNTrain forward+backward on the kernels against the same Function on
+    the plain versions; F.batch_norm(training=True) forward+backward timed
+    beside it."""
+    side = int(math.isqrt(hw))
+    g = torch.Generator(device=x.device).manual_seed(7)
+    scale = (torch.randn(c, generator=g, device=x.device) * 0.5 + 1).requires_grad_()
+    bias = torch.randn(c, generator=g, device=x.device).requires_grad_()
+    xg = x.detach().requires_grad_()
+
+    def step():
+        y, mean, var = bn.bn_train(xg, scale, bias)
+        return (y, mean, var, *torch.autograd.grad(y, (xg, scale, bias), dy))
+
+    outs = step()
+    with bn.plain_versions():
+        refs = step()
+        plain_ms = cuda_ms(torch, step, iters=10)
+    errs = [((o.double() - r.double()).abs().max() / r.double().abs().max().clamp_min(1e-30)).item()
+            for o, r in zip(outs, refs)]
+    xl = x.detach().view(CHUNK, side, side, c).permute(0, 3, 1, 2).requires_grad_()
+    dyl = dy.view(CHUNK, side, side, c).permute(0, 3, 1, 2)
+
+    def library():
+        y = F.batch_norm(xl, None, None, scale, bias, training=True)
+        return torch.autograd.grad(y, (xl, scale, bias), dyl)
+
+    row = {"kernel": "bn_train", "dtype": dtype_name, "m": x.shape[0], "c": c,
+           "max_abs_err": max((o.double() - r.double()).abs().max().item()
+                              for o, r in zip(outs, refs)),
+           "max_rel_err": max(errs), "tolerance": f"{BN_TRAIN_TOL[dtype_name]:g} of max|plain|",
+           "ms": cuda_ms(torch, step, iters=10), "plain_ms": plain_ms,
+           "library_ms": cuda_ms(torch, library, iters=10),
+           "bound_ms": bound_ms("bn_train", x.shape[0], c, x.element_size())}
+    log(f"  bn_train   {dtype_name:8s} M={row['m']:8d} C={c:3d} rel errs "
+        f"(y, mean, var, dx, dscale, dbias) {[f'{e:.1e}' for e in errs]} "
+        f"(tol {row['tolerance']}) kernels {row['ms']:.4f} ms  plain {plain_ms:.4f} ms  "
+        f"F.batch_norm {row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms")
+    check(max(errs) <= BN_TRAIN_TOL[dtype_name],
+          f"BNTrain {dtype_name} M={row['m']} C={c} disagrees with its plain version")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phases 3 and 4: the main path
+# ---------------------------------------------------------------------------
+
+def main_path_config(extra):
+    from fullbatchtraining_tpu_torch.config import load_config
+
+    return load_config(ROOT / "config", overrides=[
+        "model=resnet18", "data=CIFAR10", "hyp=fb1", "seed=0",
+        f"data.path={ROOT / 'build' / 'no_cifar_here'}", "name=chip_smoke"] + extra)
+
+
+def run_main_path(torch, extra):
+    from fullbatchtraining_tpu_torch.data import construct_databundle
+    from fullbatchtraining_tpu_torch.models import construct_model
+    from fullbatchtraining_tpu_torch.training import train
+
+    cfg = main_path_config(extra)
+    bundle = construct_databundle(cfg.data, cfg.impl, cfg.hyp, dryrun=cfg.dryrun, seed=cfg.seed)
+    model = construct_model(cfg.model, bundle.channels, bundle.classes, seed=cfg.seed)
+    initial = copy.deepcopy(model.state_dict())
+    torch.cuda.reset_peak_memory_stats()
+    state, stats = train(model, bundle, cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    return cfg, bundle, initial, state, stats
+
+
+FP32_STEP = ["hyp.warmup=0", "hyp.steps=1", "data.size=8192", "data.batch_size=512",
+             "hyp.sub_batch=512", "impl.mixed_precision=False"]
+FULL_WIDTH = ["hyp.warmup=0", "hyp.steps=3", "data.size=50_000", "data.batch_size=2048",
+              "hyp.sub_batch=2048", "impl.mixed_precision=True"]
+
+
+def phase_fp32_step(torch, bn):
+    from fullbatchtraining_tpu_torch.data import epoch_layout
+
+    bn.reset_counts()
+    cfg, bundle, initial, kstate, kstats = run_main_path(torch, FP32_STEP)
+    counts = dict(bn.launches)
+    with bn.plain_versions():
+        _, _, _, pstate, pstats = run_main_path(torch, FP32_STEP)
+    check(bn.launches == counts, "plain_versions() still launched kernels")
+    blocks, chunks, _ = epoch_layout(bundle.size, bundle.batch_size, cfg.hyp.sub_batch)
+    chunks *= blocks
+    check(all(counts[k] == BN_LAYERS * chunks for k in ("stats", "bwd_reduce", "bwd_apply")),
+          f"fp32 step launches {counts}, expected {BN_LAYERS * chunks} per kernel")
+    log(f"  launches (kernel run): {counts}")
+    for key, tol in (("train_loss", 1e-5), ("grad_norm", 1e-4), ("full_loss", 1e-5),
+                     ("valid_loss", 1e-4)):
+        a, b = kstats[key][-1], pstats[key][-1]
+        log(f"  {key}: kernels {a!r} plain {b!r} rel diff {abs(a - b) / abs(b):.2e} (tol {tol:g})")
+        check(abs(a - b) <= tol * abs(b), f"{key} differs between kernels and plain versions")
+    ks, ps = kstate.model.state_dict(), pstate.model.state_dict()
+    worst_param, worst_stat = 0.0, 0.0
+    for name, p0 in initial.items():
+        k, p = ks[name].double().cpu(), ps[name].double().cpu()
+        if name.endswith(("running_mean", "running_var")):
+            worst_stat = max(worst_stat, ((k - p).norm() / p.norm().clamp_min(1e-30)).item())
+        else:
+            step = (p - p0.double()).norm().clamp_min(1e-30)
+            worst_param = max(worst_param, ((k - p).norm() / step).item())
+    log(f"  params: max over tensors of |kernels - plain| / |update| = {worst_param:.2e} "
+        f"(tol 1e-3); running stats: max relative L2 diff = {worst_stat:.2e} (tol 1e-4)")
+    check(worst_param <= 1e-3, "updated params differ between kernels and plain versions")
+    check(worst_stat <= 1e-4, "running stats differ between kernels and plain versions")
+
+
+def phase_full_width(torch, bn):
+    from fullbatchtraining_tpu_torch.data import epoch_layout
+
+    bn.reset_counts()
+    t0 = time.time()
+    cfg, bundle, _, _, stats = run_main_path(torch, FULL_WIDTH)
+    wall = time.time() - t0
+    counts, copies = dict(bn.launches), bn.layout_copies
+    blocks, chunks, sub = epoch_layout(bundle.size, bundle.batch_size, cfg.hyp.sub_batch)
+    images = blocks * chunks * sub
+    evals = len(stats["valid_loss"])
+    eval_blocks = -(-len(bundle.valid) // bundle.batch_size)
+    per_step = BN_LAYERS * blocks * chunks
+    steps = len(stats["train_loss"])
+    result = {
+        "step_s": stats["train_time"], "images_per_step": images,
+        "images_per_s": [images / t for t in stats["train_time"]],
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "train_loss": stats["train_loss"], "train_acc": stats["train_acc"],
+        "valid_loss": stats["valid_loss"], "valid_acc": stats["valid_acc"],
+        "launches": counts, "layout_copies": copies, "evals": evals, "wall_s": wall,
+    }
+    for i, t in enumerate(stats["train_time"]):
+        log(f"  step {i + 1}: {t:.3f} s, {images / t:.0f} images/s, "
+            f"train loss {stats['train_loss'][i]:.4f} acc {stats['train_acc'][i]:.4f}")
+    log(f"  valid loss {stats['valid_loss']}, valid acc {stats['valid_acc']}")
+    log(f"  peak memory {result['peak_memory_gib']:.2f} GiB; launches {counts}; "
+        f"layout_copies {copies}; evaluations {evals}")
+    check(steps == 3 and evals == 2, f"{steps} steps and {evals} evaluations, expected 3 and 2")
+    for name in ("stats", "bwd_reduce", "bwd_apply"):
+        check(counts[name] == per_step * steps,
+              f"{name}: {counts[name]} launches, expected {per_step} per step")
+    check(counts["apply"] == per_step * steps + BN_LAYERS * eval_blocks * evals,
+          f"apply: {counts['apply']} launches, expected {per_step} per step + "
+          f"{BN_LAYERS * eval_blocks} per evaluation")
+    check(all(map(math.isfinite, stats["train_loss"] + stats["valid_loss"])),
+          "non-finite loss")
+    return result
+
+
+BN_KERNEL_NAMES = ("stats_partial", "bwd_reduce_partial", "finalize_partials", "apply_kernel",
+                   "bwd_apply_kernel")
+CONV_NAMES = ("conv", "gemm", "sm90", "cutlass", "xmma", "cudnn", "implicit", "winograd")
+
+
+def phase_profile(torch):
+    """One full-width step under torch.profiler, after a warm-up step outside
+    it: device time by kernel class, and the device's busy share (that
+    step's kernel time over the wall time of the next step, run without the
+    profiler; one stream, so kernels do not overlap)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from fullbatchtraining_tpu_torch.data import construct_databundle
+    from fullbatchtraining_tpu_torch.models import construct_model
+    from fullbatchtraining_tpu_torch.training import training
+
+    cfg = main_path_config(FULL_WIDTH)
+    bundle = construct_databundle(cfg.data, cfg.impl, cfg.hyp, dryrun=cfg.dryrun, seed=cfg.seed)
+    model = construct_model(cfg.model, bundle.channels, bundle.classes, seed=cfg.seed)
+    training.configure_backends(cfg)
+    trainer = training.Trainer(model, bundle, cfg, torch.device(DEVICE))
+    state = training.TrainState(step=0, model=model,
+                                optimizer=training.make_optimizer(model, cfg.hyp))
+    trainer.full_step(state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        trainer.full_step(state)
+        torch.cuda.synchronize()
+        traced_ms = 1e3 * (time.time() - t0)
+    t0 = time.time()
+    trainer.full_step(state)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.time() - t0)
+    kernels = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA]
+    total = sum(t for _, t, _ in kernels)
+    if not total:
+        log("  the profiler recorded no device time")
+        return None
+    classes = {"bn kernels": 0.0, "convolutions": 0.0, "other": 0.0}
+    for name, t, _ in kernels:
+        low = name.lower()
+        if any(k in name for k in BN_KERNEL_NAMES):
+            classes["bn kernels"] += t
+        elif any(k in low for k in CONV_NAMES):
+            classes["convolutions"] += t
+        else:
+            classes["other"] += t
+    result = {"wall_ms": wall_ms, "traced_wall_ms": traced_ms, "device_ms": total,
+              "busy_share": total / wall_ms, "by_class_ms": classes,
+              "top": sorted(kernels, key=lambda k: -k[1])[:12]}
+    log(f"  device {total:.1f} ms in the traced step (wall {traced_ms:.1f} ms under the "
+        f"profiler); untraced step wall {wall_ms:.1f} ms; busy share {total / wall_ms:.3f}; "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in classes.items()))
+    for name, t, n in result["top"]:
+        log(f"    {t:9.2f} ms  {n:6d}x  {name[:110]}")
+    return result
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--out", help="also write every measurement to this JSON file")
+    args = parser.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from fullbatchtraining_tpu_torch.ops import _build, bn
+
+    card = card_line()
+    log(f"[1] card: {card}")
+    log(f"    python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    t0 = time.time()
+    path, compiler = _build.build("bn_kernels")
+    log(f"    built {path.relative_to(ROOT)} in {time.time() - t0:.1f} s")
+    for line in compiler.splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            log(f"    {line.strip()}")
+
+    log("[2] kernels against their plain versions (chunk of 2048 images)")
+    rows = phase_kernels(torch, bn)
+    log("[3] float32 full-batch step: kernels against plain versions")
+    phase_fp32_step(torch, bn)
+    log("[4] main path at full width: ResNet-18 hyp=fb1, 3 steps, bf16")
+    full = phase_full_width(torch, bn)
+    log("[5] profile of one full-width step")
+    profile = phase_profile(torch)
+
+    kernels = []
+    for name in ("stats", "apply", "bwd_reduce", "bwd_apply"):
+        mine = [r for r in rows if r["kernel"] == name and r["dtype"] == "bfloat16"]
+
+        def total(key, mine=mine):
+            return LAYERS_PER_STAGE * sum(r[key] for r in mine)
+
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+            "launches": full["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+            "bound_by": "bytes", "library_ms": total("library_ms")})
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(
+            {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
+             "compiler": compiler, "kernel_rows": rows, "full_width": full, "profile": profile,
+             "kernels": kernels}, indent=1))
+    log(card)
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

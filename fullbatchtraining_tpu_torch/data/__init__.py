@@ -1,0 +1,9 @@
+"""Data of the port: host arrays, device-side augmentation, epoch layout."""
+
+from .augmentations import crop_flip, draw_crop_flip, make_augment_fn, make_eval_transform, normalize
+from .datasets import ArrayDataset, construct_datasets
+from .pipeline import DataBundle, construct_databundle, epoch_layout, layout_epoch
+
+__all__ = ["ArrayDataset", "DataBundle", "construct_datasets", "construct_databundle",
+           "crop_flip", "draw_crop_flip", "epoch_layout", "layout_epoch", "make_augment_fn",
+           "make_eval_transform", "normalize"]

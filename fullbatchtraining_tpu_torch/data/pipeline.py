@@ -1,0 +1,96 @@
+"""Data bundle and epoch layout (``fullbatchtraining_tpu/data/pipeline.py``).
+
+The training set lives as one uint8 array; an optimizer step consumes it as
+``num_blocks x chunks x sub_batch`` samples in order (drop-last), and the
+trainer keeps it resident on the device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+
+from .augmentations import make_augment_fn, make_eval_transform
+from .datasets import ArrayDataset, construct_datasets
+
+
+@dataclasses.dataclass
+class DataBundle:
+    """Everything the training layer needs about the data."""
+
+    train: ArrayDataset
+    valid: ArrayDataset
+    augment: Callable          # fn(images_u8, generator) -> augmented images
+    eval_transform: Callable   # fn(images) -> images (deterministic)
+    mean: np.ndarray
+    std: np.ndarray
+    normalize: bool
+    classes: int
+    channels: int
+    pixels: int
+    batch_size: int            # block size
+    name: str
+    augmentations_active: bool = True
+
+    @property
+    def size(self):
+        return len(self.train)
+
+
+def construct_databundle(cfg_data, cfg_impl=None, cfg_hyp=None, dryrun: bool = False,
+                         seed: int = 0) -> DataBundle:
+    """Datasets + augmentation fns + layout constants for one data config.
+
+    ``cfg_impl``, ``cfg_hyp`` and ``seed`` are accepted for call-site symmetry
+    with the JAX package; nothing of the slice's data path reads them."""
+    if cfg_data.db.name is not None:
+        raise NotImplementedError(
+            "data.db (baked N x datasets) is not ported yet "
+            "(ROADMAP.md, 'Stochastic modes and baked data')")
+    train, valid = construct_datasets(cfg_data, dryrun=dryrun)
+    return DataBundle(
+        train=train,
+        valid=valid,
+        augment=make_augment_fn(cfg_data.augmentations_train),
+        eval_transform=make_eval_transform(cfg_data.augmentations_val),
+        mean=np.asarray(cfg_data.mean, np.float32),
+        std=np.asarray(cfg_data.std, np.float32),
+        normalize=bool(cfg_data.normalize),
+        classes=cfg_data.classes,
+        channels=cfg_data.channels,
+        pixels=cfg_data.pixels,
+        batch_size=int(cfg_data.batch_size),
+        name=cfg_data.name,
+        augmentations_active=bool(cfg_data.augmentations_train),
+    )
+
+
+def epoch_layout(total: int, batch_size: int, sub_batch: int, num_devices: int = 1,
+                 dryrun: bool = False):
+    """(num_blocks, chunks_per_block, sub_batch) with drop_last; the block is
+    clamped to the dataset size so data.size-subset runs keep working."""
+    if total >= num_devices:
+        batch_size = min(batch_size, max(total // num_devices, 1))
+    sub = min(sub_batch, batch_size)
+    if batch_size % sub != 0:
+        divisors = [d for d in range(sub, 0, -1) if batch_size % d == 0]
+        sub = divisors[0]
+    global_block = batch_size * num_devices
+    num_blocks = total // global_block
+    if num_blocks == 0:
+        raise ValueError(
+            f"Dataset of {total} samples cannot fill one block of {global_block} "
+            f"({num_devices} devices x batch {batch_size}). Reduce data.batch_size.")
+    if dryrun:
+        num_blocks = 1
+    return num_blocks, batch_size // sub, sub
+
+
+def layout_epoch(images, labels, num_blocks: int, chunks: int, sub: int, num_devices: int = 1):
+    """Reshape arrays to (blocks, devices, chunks, sub, ...), order-preserving."""
+    total = num_blocks * num_devices * chunks * sub
+    images = images[:total].reshape(num_blocks, num_devices, chunks, sub, *images.shape[1:])
+    labels = labels[:total].reshape(num_blocks, num_devices, chunks, sub)
+    return images, labels

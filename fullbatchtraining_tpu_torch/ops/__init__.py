@@ -1,0 +1,5 @@
+"""Hand-written CUDA kernels of the port (built from ``csrc/`` at first use)."""
+
+from . import bn
+
+__all__ = ["bn"]

@@ -1,0 +1,72 @@
+"""Build the port's CUDA sources into shared libraries at first use.
+
+Each ``ops/csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``)
+into ``build/torch_kernels/lib<name>.<hash>.so`` at the repository root,
+keyed by a hash of the source and the flags, so an edited source rebuilds
+and an unchanged one loads at once. The library has a plain C interface and
+is loaded with ``ctypes``; nothing here includes PyTorch's headers, which
+keeps a build to seconds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def find_nvcc() -> str:
+    """``nvcc`` from ``$CUDA_HOME``, ``PATH`` or ``/usr/local/cuda``."""
+    candidates = [Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc"] if os.environ.get("CUDA_HOME") else []
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(Path(on_path))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for path in candidates:
+        if path.exists():
+            return str(path)
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the port's CUDA kernels are built from source at first use.")
+
+
+def library_path(name: str) -> Path:
+    source = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}.{digest}.so"
+
+
+def build(name: str) -> tuple[Path, str]:
+    """Compile ``csrc/<name>.cu`` unless its library exists. Returns the
+    library path and the compiler's output (``-Xptxas -v``: registers,
+    shared memory and spills of every kernel; empty when already built)."""
+    out = library_path(name)
+    if out.exists():
+        return out, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    run = subprocess.run(cmd, capture_output=True, text=True)
+    if run.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({run.returncode}): {' '.join(cmd)}\n"
+                           f"{run.stdout}{run.stderr}")
+    tmp.replace(out)  # atomic: a concurrent loader never sees a partial file
+    return out, run.stdout + run.stderr
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    if name not in _loaded:
+        path, _ = build(name)
+        _loaded[name] = ctypes.CDLL(str(path))
+    return _loaded[name]

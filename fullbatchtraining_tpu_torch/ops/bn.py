@@ -1,0 +1,279 @@
+"""Train-mode BatchNorm: four CUDA kernels, their plain versions, and the
+autograd Function that joins them.
+
+Counterpart of ``fullbatchtraining_tpu/ops/pallas_bn.py``. The kernels live in
+``csrc/bn_kernels.cu`` and work on the row-major ``[M, C]`` view of a
+channels-last activation:
+
+* ``stats``       per-channel ``(sum x, sum x^2)``           (``_stats_kernel``)
+* ``apply``       ``y = a*x + b``, per-channel ``a``, ``b``   (``_apply_kernel``)
+* ``bwd_reduce``  per-channel ``(sum dy, sum dy*x)``         (``_bwd_reduce_kernel``)
+* ``bwd_apply``   ``dx = a*dy + c1 + c2*x``                  (``_bwd_apply_kernel``)
+
+Each wrapper runs its kernel for a CUDA tensor and its plain PyTorch version
+for a CPU tensor; nothing falls back from one to the other. Inside
+:func:`plain_versions` the plain versions run on CUDA too (tests and the
+chip smoke compare the two that way). Each kernel launch adds one to
+``launches[name]``.
+
+Sums and coefficients are kept in ``promote(x.dtype, float32)``: float32 for
+float32 and bfloat16 inputs, float64 for float64 (the rule of the model's
+BatchNorm, ``_TorchBatchNorm.stat_dtype``).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+
+launches = {"stats": 0, "apply": 0, "bwd_reduce": 0, "bwd_apply": 0}
+# channels-last copies BNTrain had to make of an input or an incoming gradient
+layout_copies = 0
+
+_force_plain = False
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float64: "f64"}
+_BLOCKS_PER_SM = 8      # 256-thread blocks resident per SM (2048 threads)
+_CHANNEL_TILE = 32      # channels per block (csrc TX)
+_MIN_ROWS_PER_BLOCK = 64
+
+
+def reset_counts() -> None:
+    global layout_copies
+    for name in launches:
+        launches[name] = 0
+    layout_copies = 0
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Run the plain PyTorch versions on CUDA tensors as well (for tests and
+    the chip smoke's comparisons; the main path never enters this)."""
+    global _force_plain
+    previous, _force_plain = _force_plain, True
+    try:
+        yield
+    finally:
+        _force_plain = previous
+
+
+def stat_dtype(dtype: torch.dtype) -> torch.dtype:
+    """promote(dtype, float32); the kernels take float32, bfloat16, float64."""
+    if dtype not in _SUFFIX:
+        raise TypeError(f"BatchNorm kernels take float32, bfloat16 or float64, not {dtype}")
+    return torch.promote_types(dtype, torch.float32)
+
+
+# --------------------------------------------------------------------------
+# plain versions: the same functions in PyTorch
+# --------------------------------------------------------------------------
+
+def stats_plain(x: torch.Tensor) -> torch.Tensor:
+    xf = x.to(stat_dtype(x.dtype))
+    return torch.stack([xf.sum(0), (xf * xf).sum(0)])
+
+
+def apply_plain(x: torch.Tensor, ab: torch.Tensor) -> torch.Tensor:
+    return (x.to(ab.dtype) * ab[0] + ab[1]).to(x.dtype)
+
+
+def bwd_reduce_plain(dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    acc = stat_dtype(x.dtype)
+    dyf, xf = dy.to(acc), x.to(acc)
+    return torch.stack([dyf.sum(0), (dyf * xf).sum(0)])
+
+
+def bwd_apply_plain(dy: torch.Tensor, x: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
+    dyf, xf = dy.to(coef.dtype), x.to(coef.dtype)
+    return (dyf * coef[0] + coef[1] + xf * coef[2]).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# kernel wrappers
+# --------------------------------------------------------------------------
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = _build.load("bn_kernels")
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    for suffix in _SUFFIX.values():
+        for name, nptr in (("stats", 3), ("apply", 3), ("bwd_reduce", 4), ("bwd_apply", 4)):
+            fn = getattr(lib, f"fbt_bn_{name}_{suffix}")
+            fn.argtypes = [ptr] * nptr + [i64, i32, i32, ptr]
+            fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _row_blocks(device: torch.device, m: int, c: int) -> int:
+    """Row ranges per launch: enough blocks to fill every SM, no fewer than
+    _MIN_ROWS_PER_BLOCK rows each. Depends only on (card, M, C), so the
+    reductions' summation order is fixed for a given card."""
+    tiles = -(-c // _CHANNEL_TILE)
+    target = max(1, _sm_count(device.index) * _BLOCKS_PER_SM // tiles)
+    return max(1, min(target, -(-m // _MIN_ROWS_PER_BLOCK)))
+
+
+def _use_kernel(*tensors: torch.Tensor) -> bool:
+    device = tensors[0].device
+    if device.type == "cpu" or (_force_plain and device.type == "cuda"):
+        return False
+    if device.type != "cuda":
+        raise RuntimeError(f"BatchNorm kernels run on CUDA or CPU tensors, not {device}")
+    x = tensors[0]
+    for t in tensors:
+        if t.device != device or t.dtype != x.dtype or t.shape != x.shape:
+            raise ValueError("BatchNorm kernel inputs must share device, dtype and shape")
+        if t.dim() != 2 or not t.is_contiguous():
+            raise ValueError("BatchNorm kernels take contiguous [M, C] tensors")
+    if device.index != torch.cuda.current_device():
+        raise RuntimeError(f"tensor on {device} but the current device is "
+                           f"cuda:{torch.cuda.current_device()}")
+    stat_dtype(x.dtype)
+    return True
+
+
+def _check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"BatchNorm kernel {name} failed to launch: CUDA error {err}")
+
+
+def _coefficients(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    acc = stat_dtype(x.dtype)
+    if k.shape != (k.shape[0], x.shape[1]) or k.dtype != acc:
+        raise ValueError(f"per-channel coefficients must be [{k.shape[0]}, {x.shape[1]}] {acc}")
+    return k.contiguous()
+
+
+def _reduce(name: str, plain, *inputs: torch.Tensor) -> torch.Tensor:
+    if not _use_kernel(*inputs):
+        return plain(*inputs)
+    x = inputs[-1]
+    m, c = x.shape
+    acc = stat_dtype(x.dtype)
+    out = torch.empty((2, c), dtype=acc, device=x.device)
+    if m == 0 or c == 0:
+        return out.zero_()
+    g = _row_blocks(x.device, m, c)
+    ws = torch.empty((g, 2, c), dtype=acc, device=x.device)
+    fn = getattr(_library(), f"fbt_bn_{name}_{_SUFFIX[x.dtype]}")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _check(fn(*(t.data_ptr() for t in inputs), ws.data_ptr(), out.data_ptr(), m, c, g, stream), name)
+    launches[name] += 1
+    return out
+
+
+def _elementwise(name: str, plain, coef: torch.Tensor, *inputs: torch.Tensor) -> torch.Tensor:
+    if not _use_kernel(*inputs):
+        return plain(*inputs, coef)
+    x = inputs[-1]
+    coef = _coefficients(x, coef)
+    m, c = x.shape
+    out = torch.empty_like(x)
+    if m == 0 or c == 0:
+        return out
+    g = _row_blocks(x.device, m, c)
+    fn = getattr(_library(), f"fbt_bn_{name}_{_SUFFIX[x.dtype]}")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _check(fn(*(t.data_ptr() for t in inputs), coef.data_ptr(), out.data_ptr(), m, c, g, stream), name)
+    launches[name] += 1
+    return out
+
+
+def stats(x: torch.Tensor) -> torch.Tensor:
+    """``[2, C]``: per-channel ``sum x`` and ``sum x^2`` of ``x [M, C]``."""
+    return _reduce("stats", stats_plain, x)
+
+
+def apply(x: torch.Tensor, ab: torch.Tensor) -> torch.Tensor:
+    """``y = ab[0]*x + ab[1]`` per channel, in ``x.dtype``."""
+    return _elementwise("apply", apply_plain, ab, x)
+
+
+def bwd_reduce(dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``[2, C]``: per-channel ``sum dy`` and ``sum dy*x``."""
+    return _reduce("bwd_reduce", bwd_reduce_plain, dy, x)
+
+
+def bwd_apply(dy: torch.Tensor, x: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
+    """``dx = coef[0]*dy + coef[1] + coef[2]*x`` per channel, in ``x.dtype``."""
+    return _elementwise("bwd_apply", bwd_apply_plain, coef, dy, x)
+
+
+# --------------------------------------------------------------------------
+# the autograd Function (pallas_bn.bn_train and its custom VJP)
+# --------------------------------------------------------------------------
+
+def as_rows(t: torch.Tensor) -> torch.Tensor:
+    """``[..., C]`` -> contiguous ``[M, C]``; a copy only for a strided input."""
+    global layout_copies
+    if not t.is_contiguous():
+        layout_copies += 1
+        t = t.contiguous()
+    return t.reshape(-1, t.shape[-1])
+
+
+class BNTrain(torch.autograd.Function):
+    """``(y, mean, biased var)`` over every axis but the trailing channel
+    axis; differentiable in x, scale and bias with mean and var treated as
+    functions of x, and correct for cotangents of mean and var too."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, x, scale, bias, eps: float):
+        x2 = as_rows(x)
+        n = x2.shape[0]
+        acc = stat_dtype(x.dtype)
+        sums = stats(x2)
+        mean = sums[0] / n
+        var = sums[1] / n - mean * mean  # E[x^2] - E[x]^2, as pallas_bn and layers.py
+        invstd = torch.rsqrt(var + eps)
+        a = scale.to(acc) * invstd
+        b = bias.to(acc) - mean * a
+        y = apply(x2, torch.stack([a, b]))
+        ctx.save_for_backward(x2, scale, mean, invstd)
+        ctx.shape = x.shape
+        return y.view(x.shape), mean, var
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, dy, dmean, dvar):
+        x2, scale, mean, invstd = ctx.saved_tensors
+        n = x2.shape[0]
+        dy2 = as_rows(dy.to(x2.dtype))
+        sums = bwd_reduce(dy2, x2)
+        s1 = sums[0]                    # sum(dy)
+        s2 = sums[1] - mean * s1        # sum(dy * (x - mean))
+        a = scale.to(mean.dtype) * invstd
+        # dx = a*dy + c1 + c2*x: the dy terms plus the cotangents of mean, var
+        c2 = (-a * invstd * invstd * s2 + 2.0 * dvar) / n
+        c1 = (-a * s1 + dmean) / n - c2 * mean
+        dx = bwd_apply(dy2, x2, torch.stack([a, c1, c2]))
+        dscale = (s2 * invstd).to(scale.dtype)
+        dbias = s1.to(scale.dtype)
+        return dx.view(ctx.shape), dscale, dbias, None
+
+
+def bn_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5):
+    """Train-mode batch norm of ``x [..., C]``: ``(y, mean, biased var)``."""
+    return BNTrain.apply(x, scale, bias, eps)
+
+
+def bn_train_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                       eps: float = 1e-5):
+    """Differentiable plain twin of :func:`bn_train` in stock PyTorch ops."""
+    xf = x.to(stat_dtype(x.dtype))
+    dims = tuple(range(x.dim() - 1))
+    mean = xf.mean(dims)
+    var = (xf * xf).mean(dims) - mean * mean
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    y = y * scale.to(xf.dtype) + bias.to(xf.dtype)
+    return y.to(x.dtype), mean, var

@@ -1,0 +1,370 @@
+"""Full-batch training on one card (``fullbatchtraining_tpu/training/training.py``).
+
+One optimizer step averages the gradient of the whole training set, chunk by
+chunk, then applies the gradient modifiers and one SGD step:
+
+    for each chunk (sub_batch samples, in epoch order):
+        crop+flip, normalize, forward + backward (train-mode BN, whose
+        running stats carry on from chunk to chunk), loss
+        squared gradient norm (before clipping), optional per-chunk clip
+        streaming mean  avg += (g - avg) / (chunk + 1)  in accumulation dtype
+    norm bias, full-gradient clip, gradient noise
+    SGD step at lr = schedule(step), EMA
+
+These are the JAX package's semantics for one device with
+``impl.block_grouping=1`` (its grouped scan is exact, so it computes the same
+thing). ``impl.mixed_precision`` runs the forward under bf16 autocast with
+fp32 parameters and accumulators; logits are cast to the stat dtype.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import logging
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..data.augmentations import normalize as normalize_images
+from ..data.pipeline import DataBundle, epoch_layout, layout_epoch
+from ..models.modules import get_loss_fn
+from .optimizers import make_lr_schedule, make_optimizer
+
+log = logging.getLogger(__name__)
+
+_DTYPES = {"float": torch.float32, "float32": torch.float32, "float64": torch.float64,
+           "bfloat16": torch.bfloat16, "double": torch.float64}
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    ema_model: nn.Module | None = None  # hyp.evaluate_ema: EMA of params and BN stats
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device(device)``; asking for CUDA without a card raises instead
+    of running on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() is False; "
+                           "pass device='cpu' (CLI: +impl.device=cpu) to run on the CPU")
+    return device
+
+
+def check_slice(cfg) -> None:
+    """Raise for modes the port does not run yet, naming their ROADMAP item."""
+    hyp = cfg.hyp
+    missing = [
+        (hyp.train_stochastic or hyp.train_switch_stochastic is not None
+         or hyp.train_semi_stochastic, "stochastic training modes",
+         "Stochastic modes and baked data"),
+        (hyp.shuffle, "hyp.shuffle=True", "Stochastic modes and baked data"),
+        (hyp.grad_reg.block_strength or hyp.grad_reg.acc_strength,
+         "gradient regularization", "Gradient regularizer"),
+        (cfg.impl.checkpoint.name is not None, "checkpoints", "Checkpoints"),
+        (cfg.impl.setup.dist, "distributed setup", "Data parallelism"),
+        (cfg.analysis.type is not None, "analysis.type", "Analysis"),
+        (cfg.analysis.save_model_every_nth_step is not None,
+         "analysis.save_model_every_nth_step", "Loss landscape and tools"),
+        (cfg.impl.get("trace", False), "impl.trace", "Profiler trace"),
+        ("float16" in (cfg.impl.dtype, cfg.impl.compute_dtype, cfg.impl.accumulation_dtype),
+         "float16 parameters or compute", "Float16 compute"),
+    ]
+    for active, what, item in missing:
+        if active:
+            raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, '{item}')")
+
+
+def tree_sqnorm(tensors) -> torch.Tensor:
+    return torch.stack([t.square().sum() for t in tensors]).sum()
+
+
+def tree_clip_by_norm(tensors, max_norm, norm_type, eps=1e-6):
+    """Clip a list of tensors to total norm ``max_norm`` (2, p or inf).
+
+    Returns (clipped list, was_clipped, pre-clip norm); no host sync."""
+    if norm_type == float("inf") or norm_type == "inf":
+        norm = torch.stack([t.abs().max() for t in tensors]).max()
+    elif norm_type == 2:
+        norm = torch.sqrt(tree_sqnorm(tensors))
+    else:
+        p = float(norm_type)
+        norm = torch.stack([(t.abs() ** p).sum() for t in tensors]).sum() ** (1.0 / p)
+    clipped = norm > max_norm
+    scale = torch.where(clipped, max_norm / (norm + eps), torch.ones_like(norm))
+    return [t * scale for t in tensors], clipped, norm
+
+
+def stage_validation(bundle: DataBundle, batch: int, device, dryrun: bool = False):
+    """Validation set padded to whole blocks of ``batch`` with per-sample
+    weights (0 on padding), resident on ``device``."""
+    images, labels = bundle.valid.images, bundle.valid.labels
+    n = len(images)
+    blocks = 1 if dryrun else -(-n // batch)
+    total = blocks * batch
+    keep = min(n, total)
+    pad = total - keep
+    images = np.concatenate([images[:keep], np.zeros((pad, *images.shape[1:]), images.dtype)])
+    labels = np.concatenate([labels[:keep], np.zeros(pad, labels.dtype)])
+    weights = np.concatenate([np.ones(keep, np.float32), np.zeros(pad, np.float32)])
+    return (torch.from_numpy(images).to(device).view(blocks, batch, *images.shape[1:]),
+            torch.from_numpy(labels).long().to(device).view(blocks, batch),
+            torch.from_numpy(weights).to(device).view(blocks, batch))
+
+
+def status_message(stats, step):
+    def last(key):
+        return stats[key][-1] if stats.get(key) else float("nan")
+
+    return (f"Step: {step:<4}| lr: {last('lr'):.4f} | Time: {last('train_time'):4.2f}s |"
+            f"TRAIN loss {last('train_loss'):7.4f} | TRAIN Acc: {last('train_acc'):7.2%} |"
+            f"VAL loss {last('valid_loss'):7.4f} | VAL Acc: {last('valid_acc'):7.2%} |")
+
+
+class Trainer:
+    """The step functions of one run: ``full_step`` and ``eval_step``."""
+
+    def __init__(self, model: nn.Module, bundle: DataBundle, cfg, device):
+        hyp, impl = cfg.hyp, cfg.impl
+        self.cfg, self.bundle, self.device = cfg, bundle, device
+        self.param_dtype = _DTYPES[impl.dtype]
+        self.acc_dtype = _DTYPES[impl.accumulation_dtype]
+        compute = (_DTYPES[impl.compute_dtype] if impl.compute_dtype
+                   else (torch.bfloat16 if impl.mixed_precision else self.param_dtype))
+        self.compute_dtype = compute
+        self.autocast_dtype = None if compute == self.param_dtype else compute
+        if self.autocast_dtype not in (None, torch.bfloat16):
+            raise NotImplementedError(f"compute dtype {compute} with parameters in "
+                                      f"{self.param_dtype} has no autocast form")
+        # loss and stat scalars: at least float32, float64 in float64 runs
+        self.stat_dtype = torch.promote_types(self.param_dtype, torch.float32)
+        self.num_blocks, self.chunks, self.sub = epoch_layout(
+            bundle.size, bundle.batch_size, hyp.sub_batch, 1, dryrun=cfg.dryrun)
+        self.criterion = get_loss_fn(hyp, bundle.batch_size)
+        self.schedule = make_lr_schedule(hyp)
+        self.weight_decay = float(hyp.optim.get("weight_decay", 0.0) or 0.0)
+        self.mean = torch.as_tensor(bundle.mean, device=device)
+        self.std = torch.as_tensor(bundle.std, device=device)
+
+        model.to(device=device, dtype=self.param_dtype, memory_format=torch.channels_last)
+        self.params = list(model.parameters())
+
+        # the epoch stays resident on the device as uint8, one row per chunk
+        images, labels = layout_epoch(bundle.train.images, bundle.train.labels,
+                                      self.num_blocks, self.chunks, self.sub)
+        self.images = torch.from_numpy(np.ascontiguousarray(images)).to(device).flatten(0, 2)
+        self.labels = torch.from_numpy(labels).long().to(device).flatten(0, 2)
+
+    # -- inputs and forward -------------------------------------------------
+    def _normalize(self, images):
+        if self.bundle.normalize:
+            return normalize_images(images, self.mean, self.std, self.compute_dtype)
+        return images.to(self.compute_dtype) / 255.0
+
+    def forward(self, model, x):
+        with torch.autocast(self.device.type, dtype=self.autocast_dtype or torch.bfloat16,
+                            enabled=self.autocast_dtype is not None):
+            logits = model(x)
+        return logits.to(self.stat_dtype)
+
+    def generator(self, step: int) -> torch.Generator:
+        seed = self.cfg.seed if self.cfg.seed is not None else 0
+        return torch.Generator(device=self.device).manual_seed(int(seed) * 1_000_003 + step)
+
+    # -- one full-batch step --------------------------------------------------
+    def accumulate(self, model, gen):
+        """Streaming mean of the chunk gradients over the epoch, BN stats
+        carried along. Returns (avg grads, metrics, squared chunk norms)."""
+        hyp = self.cfg.hyp
+        model.train()
+        avg = [torch.zeros_like(p, dtype=self.acc_dtype) for p in self.params]
+        sloss = torch.zeros((), dtype=self.stat_dtype, device=self.device)
+        spreds = torch.zeros((), dtype=self.stat_dtype, device=self.device)
+        sq_norms, clipped = [], []
+        for cidx in range(self.num_blocks * self.chunks):
+            images, labels = self.images[cidx], self.labels[cidx]
+            if self.bundle.augmentations_active:
+                images = self.bundle.augment(images, gen)
+            logits = self.forward(model, self._normalize(images))
+            loss = self.criterion(logits, labels)
+            grads = torch.autograd.grad(loss, self.params)
+            sq_norms.append(tree_sqnorm(grads))
+            grads = [g.to(self.acc_dtype) for g in grads]
+            if hyp.batch_clip is not None:
+                grads, was_clipped, _ = tree_clip_by_norm(grads, hyp.batch_clip,
+                                                          hyp.grad_clip_norm)
+                clipped.append(was_clipped.to(torch.float32))
+            diff = torch._foreach_sub(grads, avg)
+            torch._foreach_div_(diff, cidx + 1)
+            torch._foreach_add_(avg, diff)
+            sloss = sloss + loss.detach() / self.chunks
+            spreds = spreds + (logits.argmax(-1) == labels).to(self.stat_dtype).sum()
+
+        sq_norms = torch.stack(sq_norms)
+        param_norm = tree_sqnorm([p.detach() for p in self.params])
+        full_loss = sloss / self.num_blocks + 0.5 * self.weight_decay * param_norm
+        metrics = {
+            "train_loss": sloss / self.num_blocks,
+            "train_acc": spreds / (self.num_blocks * self.chunks * self.sub),
+            "param_norm": param_norm,
+            "grad_norm": torch.sqrt(sq_norms.mean()),
+            "full_loss": full_loss,
+            "clipped_batches": (torch.stack(clipped).sum() if clipped
+                                else torch.zeros((), device=self.device)),
+        }
+        return avg, metrics, sq_norms
+
+    def modify_gradient(self, grads, gen, metrics):
+        """Norm bias, full-gradient clip and gradient noise."""
+        hyp = self.cfg.hyp
+        params = [p.detach() for p in self.params]
+        if hyp.norm_bias.strength > 0.0:
+            pn = tree_sqnorm(params)
+            if hyp.norm_bias.norm_type == 1:
+                sign = torch.sign(pn - hyp.norm_bias.bias ** 2)
+                grads = [g + hyp.norm_bias.strength * sign for g in grads]
+            else:
+                factor = 2 * (pn - hyp.norm_bias.bias ** 2)
+                grads = [g + hyp.norm_bias.strength * factor * p for g, p in zip(grads, params)]
+        if hyp.grad_clip is not None:
+            grads, was_clipped, pre_norm = tree_clip_by_norm(grads, hyp.grad_clip,
+                                                             hyp.grad_clip_norm)
+            metrics["preclip_gradnorm"] = pre_norm
+            metrics["clipped_step"] = was_clipped.to(torch.float32)
+        if hyp.grad_noise.additive is not None:
+            grads = [g + hyp.grad_noise.additive
+                     * torch.randn(g.shape, generator=gen, dtype=g.dtype, device=g.device)
+                     for g in grads]
+        if hyp.grad_noise.multiplicative is not None:
+            grads = [g * (1 + hyp.grad_noise.multiplicative
+                          * torch.randn(g.shape, generator=gen, dtype=g.dtype, device=g.device))
+                     for g in grads]
+        return grads, metrics
+
+    def full_step(self, state: TrainState):
+        """One optimizer step on the full-batch gradient; returns metrics as
+        device scalars plus the per-chunk gradient norms."""
+        lr = self.schedule(state.step)
+        gen = self.generator(state.step)
+        grads, metrics, sq_norms = self.accumulate(state.model, gen)
+        grads, metrics = self.modify_gradient(grads, gen, metrics)
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        for p, g in zip(self.params, grads):
+            p.grad = g.to(p.dtype)
+        state.optimizer.step()
+        state.optimizer.zero_grad(set_to_none=True)
+        if state.ema_model is not None:
+            m = self.cfg.hyp.eval_ema_momentum
+            with torch.no_grad():
+                for e, t in zip(state.ema_model.state_dict().values(),
+                                state.model.state_dict().values()):
+                    e.copy_(m * e + (1 - m) * t)
+        state.step += 1
+        metrics["lr"] = lr
+        metrics["grad_norms_per_chunk"] = torch.sqrt(sq_norms)
+        return metrics
+
+    # -- evaluation ------------------------------------------------------------
+    @torch.no_grad()
+    def eval_step(self, model, images, labels, weights):
+        """Weighted loss and accuracy over the staged validation blocks."""
+        model.eval()
+        sums = torch.zeros(3, dtype=self.stat_dtype, device=self.device)
+        for blk in range(images.shape[0]):
+            x = self._normalize(self.bundle.eval_transform(images[blk]))
+            lbls, w = labels[blk], weights[blk]
+            logits = self.forward(model, x)
+            if self.cfg.hyp.test_time_flips:
+                flipped = self.forward(model, x.flip(2))
+                outputs = torch.softmax(logits, -1) + torch.softmax(flipped, -1)
+            else:
+                outputs = logits
+            losses = -torch.log_softmax(outputs, -1)[torch.arange(lbls.shape[0], device=lbls.device), lbls]
+            correct = (outputs.argmax(-1) == lbls).to(torch.float32) * w
+            sums += torch.stack([(losses * w).sum(), correct.sum(), w.sum()]).to(self.stat_dtype)
+        model.train()
+        return {"valid_loss": sums[0] / sums[2], "valid_acc": sums[1] / sums[2]}
+
+
+def _to_host(metrics: dict) -> dict:
+    """One device-to-host transfer for every metric of a step."""
+    tensors = [v.reshape(-1).to(torch.float64) for v in metrics.values()
+               if isinstance(v, torch.Tensor)]
+    host = iter(torch.cat(tensors).tolist())
+    out = {}
+    for k, v in metrics.items():
+        if isinstance(v, torch.Tensor):
+            values = [next(host) for _ in range(v.numel())]
+            out[k] = values if k == "grad_norms_per_chunk" else values[0]
+        else:
+            out[k] = float(v)
+    return out
+
+
+def configure_backends(cfg) -> None:
+    """cuDNN flags from ``impl.deterministic``/``impl.benchmark``; TF32 off for
+    convolutions and matmuls, so float32 means float32 (bf16 speed comes from
+    ``impl.mixed_precision``)."""
+    torch.backends.cudnn.deterministic = bool(cfg.impl.get("deterministic", True))
+    torch.backends.cudnn.benchmark = bool(cfg.impl.get("benchmark", False))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def train(model: nn.Module, bundle: DataBundle, cfg, device="cuda", stats=None):
+    """Train ``model`` from its current weights per ``cfg.hyp``/``cfg.impl``.
+
+    Returns ``(state, stats)``: the final :class:`TrainState` and the stats
+    dict of lists (the JAX package's keys, ``grad_norm_train_{i}`` per chunk)."""
+    device = resolve_device(device)
+    check_slice(cfg)
+    configure_backends(cfg)
+    trainer = Trainer(model, bundle, cfg, device)
+    state = TrainState(step=0, model=model, optimizer=make_optimizer(model, cfg.hyp),
+                       ema_model=copy.deepcopy(model) if cfg.hyp.evaluate_ema else None)
+    val_data = stage_validation(bundle, bundle.batch_size, device, dryrun=cfg.dryrun)
+    stats = stats if stats is not None else defaultdict(list)
+
+    while state.step < cfg.hyp.steps:
+        t0 = time.time()
+        metrics = _to_host(trainer.full_step(state))
+        step = state.step
+        for k, v in metrics.items():
+            if k == "grad_norms_per_chunk":
+                for idx, entry in enumerate(v):
+                    stats[f"grad_norm_train_{idx}"] += [entry]
+            else:
+                stats[k] += [v]
+        stats["train_time"] += [time.time() - t0]
+
+        eval_model = state.ema_model if state.ema_model is not None else state.model
+        if ((step - 1) % cfg.impl.validate_every_nth_step == 0
+                or step >= cfg.hyp.steps or cfg.dryrun):
+            vm = _to_host(trainer.eval_step(eval_model, *val_data))
+            stats["valid_loss"] += [vm["valid_loss"]]
+            stats["valid_acc"] += [vm["valid_acc"]]
+
+        log.info(status_message(stats, step))
+
+        if not np.isfinite(stats["train_loss"][-1]):
+            log.info("Terminating iterations due to divergence of loss...")
+            break
+        if cfg.hyp.stop_at_full_training_accuracy > 0:
+            last_n = stats["train_acc"][-cfg.hyp.stop_at_full_training_accuracy:]
+            if min(last_n) == 1:
+                log.info("Terminating training after fitting all datapoints.")
+                vm = _to_host(trainer.eval_step(eval_model, *val_data))
+                stats["valid_loss"] += [vm["valid_loss"]]
+                stats["valid_acc"] += [vm["valid_acc"]]
+                break
+        if cfg.dryrun:
+            break
+    return state, stats

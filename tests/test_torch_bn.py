@@ -1,0 +1,187 @@
+"""The port's BatchNorm (ops/bn.py, models/layers.py) against the JAX package.
+
+On the CPU the port's ``BNTrain`` runs the kernels' plain versions with its
+real glue (the coefficient math between the kernels). It is held against
+``pallas_bn.bn_train`` in interpret mode (where the Pallas path can tile the
+rows) and ``pallas_bn.bn_train_reference``, for float32 and bfloat16. Those
+compute their statistics in float32 always; for float64 the oracle is the
+same formula in float64, the rule of ``_TorchBatchNorm`` (statistics in
+promote(x.dtype, float32)). Tolerances: float32 1e-5 (summation order),
+bfloat16 2e-2 (one bf16 rounding of y and dx), float64 1e-12.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fullbatchtraining_tpu.models.layers import BatchNorm2d as FlaxBatchNorm2d
+from fullbatchtraining_tpu.ops import pallas_bn
+from fullbatchtraining_tpu_torch.models.layers import BatchNorm2d
+from fullbatchtraining_tpu_torch.ops import bn
+
+TOL = {"float32": 1e-5, "bfloat16": 2e-2, "float64": 1e-12}
+STAT_TOL = {"float32": 1e-5, "bfloat16": 1e-5, "float64": 1e-12}
+CASES = [
+    ((4, 8, 8, 64), "float32"),
+    ((2, 4, 4, 96), "bfloat16"),
+    ((128, 40), "float32"),
+    ((3, 5, 7, 24), "float32"),    # M = 105 rows: ragged for any tile
+    ((3, 5, 7, 24), "bfloat16"),
+    ((4, 8, 8, 64), "float64"),
+    ((3, 5, 7, 24), "float64"),
+]
+IDS = [f"{'x'.join(map(str, s))}-{d}" for s, d in CASES]
+
+
+@pytest.fixture(autouse=True)
+def _interpret(monkeypatch):
+    monkeypatch.setattr(pallas_bn, "_INTERPRET", True)
+
+
+def _rand(shape, seed, scale=1.0, shift=0.0):
+    return np.random.default_rng(seed).standard_normal(shape) * scale + shift
+
+
+def _reference_f64(x, scale, bias, eps=1e-5):
+    """bn_train_reference's formula with float64 statistics."""
+    axes = tuple(range(x.ndim - 1))
+    mean = jnp.mean(x, axes)
+    var = jnp.mean(jnp.square(x), axes) - jnp.square(mean)
+    y = (x - mean) * jax.lax.rsqrt(var + eps) * scale + bias
+    return y, mean, var
+
+
+def _oracles(x, dtype):
+    """(name, fn) of the JAX functions the port is held against."""
+    if dtype == "float64":
+        return [("reference_f64", _reference_f64)]
+    out = [("reference", pallas_bn.bn_train_reference)]
+    if pallas_bn.supported(x):
+        out.append(("pallas", pallas_bn.bn_train))
+    return out
+
+
+def _inputs(shape, dtype):
+    c = shape[-1]
+    x = _rand(shape, 0, 1.5, 0.3)
+    scale = _rand((c,), 1) * 0.5 + 1.0
+    bias = _rand((c,), 2)
+    cot = _rand(shape, 3)
+    sdtype = "float64" if dtype == "float64" else "float32"
+    return x, scale.astype(sdtype), bias.astype(sdtype), cot
+
+
+def _jax(a, dtype):
+    return jnp.asarray(a, getattr(jnp, dtype))
+
+
+def _torch(a, dtype, grad=False):
+    rounded = np.asarray(jnp.asarray(a, getattr(jnp, dtype))).astype(np.float64)
+    t = torch.tensor(rounded, dtype=getattr(torch, dtype))
+    return t.requires_grad_(grad)
+
+
+def _np(t):
+    return t.detach().to(torch.float64).numpy()
+
+
+def _close(ours, ref, tol, what):
+    ref = np.asarray(ref).astype(np.float64)
+    np.testing.assert_allclose(ours, ref, rtol=tol, atol=tol * max(1.0, np.abs(ref).max()),
+                               err_msg=what)
+
+
+@pytest.mark.parametrize("shape,dtype", CASES, ids=IDS)
+def test_forward_matches_jax(shape, dtype):
+    x, scale, bias, _ = _inputs(shape, dtype)
+    with jax.enable_x64(dtype == "float64"):
+        jx = _jax(x, dtype)
+        y, mean, var = bn.bn_train(_torch(x, dtype), torch.tensor(scale), torch.tensor(bias))
+        assert y.dtype == getattr(torch, dtype) and y.shape == shape
+        for name, fn in _oracles(jx, dtype):
+            y_ref, mean_ref, var_ref = fn(jx, jnp.asarray(scale), jnp.asarray(bias))
+            _close(_np(y), y_ref, TOL[dtype], f"{name} y")
+            _close(_np(mean), mean_ref, STAT_TOL[dtype], f"{name} mean")
+            _close(_np(var), var_ref, STAT_TOL[dtype], f"{name} var")
+
+
+@pytest.mark.parametrize("shape,dtype", CASES, ids=IDS)
+def test_backward_matches_jax(shape, dtype):
+    """Full backward with mean and var as functions of x, at non-zero scales
+    (a zero-init scale would hide a wrong dx)."""
+    x, scale, bias, cot = _inputs(shape, dtype)
+    with jax.enable_x64(dtype == "float64"):
+        jx, jcot = _jax(x, dtype), _jax(cot, dtype)
+        tx = _torch(x, dtype, grad=True)
+        ts = torch.tensor(scale, requires_grad=True)
+        tb = torch.tensor(bias, requires_grad=True)
+        y, _, _ = bn.bn_train(tx, ts, tb)
+        grads = torch.autograd.grad(y, (tx, ts, tb), grad_outputs=_torch(cot, dtype))
+        for name, fn in _oracles(jx, dtype):
+            def loss(x_, s_, b_):
+                return jnp.sum(fn(x_, s_, b_)[0] * jcot)
+
+            ref = jax.grad(loss, argnums=(0, 1, 2))(jx, jnp.asarray(scale), jnp.asarray(bias))
+            for what, ours, r in zip(("dx", "dscale", "dbias"), grads, ref):
+                _close(_np(ours), r, TOL[dtype], f"{name} {what}")
+
+
+@pytest.mark.parametrize("shape,dtype", CASES, ids=IDS)
+def test_mean_var_cotangents(shape, dtype):
+    """The mean/var outputs feed the running stats; their cotangents are zero
+    in training, but the backward must be right when they are not."""
+    x, scale, bias, _ = _inputs(shape, dtype)
+    with jax.enable_x64(dtype == "float64"):
+        jx = _jax(x, dtype)
+        tx = _torch(x, dtype, grad=True)
+        y, mean, var = bn.bn_train(tx, torch.tensor(scale), torch.tensor(bias))
+        total = y.to(mean.dtype).sum() + (mean * 3.0).sum() + (var * 0.5).sum()
+        (dx,) = torch.autograd.grad(total, (tx,))
+        for name, fn in _oracles(jx, dtype):
+            def agg(x_):
+                y_, m_, v_ = fn(x_, jnp.asarray(scale), jnp.asarray(bias))
+                return (jnp.sum(y_.astype(m_.dtype)) + jnp.sum(m_ * 3.0)
+                        + jnp.sum(v_ * 0.5))
+
+            _close(_np(dx), jax.grad(agg)(jx), TOL[dtype], f"{name} dx")
+
+
+def test_kernels_take_only_their_dtypes():
+    with pytest.raises(TypeError):
+        bn.stats(torch.zeros(4, 3, dtype=torch.float16))
+
+
+@pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
+def test_batchnorm2d_matches_flax(train):
+    """BatchNorm2d against the flax layer it ports, in float64: outputs and
+    updated running stats (unbiased n/(n-1) variance, momentum 0.9)."""
+    shape, c = (3, 6, 5, 16), 16
+    x = _rand(shape, 4, 2.0, -0.5)
+    params = {"scale": _rand((c,), 5) * 0.3 + 1.0, "bias": _rand((c,), 6)}
+    stats = {"mean": _rand((c,), 7), "var": np.abs(_rand((c,), 8)) + 0.5}
+    with jax.enable_x64(True):
+        layer = FlaxBatchNorm2d(c)
+        variables = {"params": {"bn": params}, "batch_stats": {"bn": stats}}
+        if train:
+            y_ref, upd = layer.apply(variables, jnp.asarray(x), train=True,
+                                     mutable=["batch_stats"])
+            stats_ref = upd["batch_stats"]["bn"]
+        else:
+            y_ref, stats_ref = layer.apply(variables, jnp.asarray(x), train=False), stats
+
+    module = BatchNorm2d(c).to(torch.float64)
+    with torch.no_grad():
+        module.weight.copy_(torch.from_numpy(params["scale"]))
+        module.bias.copy_(torch.from_numpy(params["bias"]))
+        module.running_mean.copy_(torch.from_numpy(stats["mean"]))
+        module.running_var.copy_(torch.from_numpy(stats["var"]))
+    module.train(train)
+    tx = torch.from_numpy(x).permute(0, 3, 1, 2)  # channels_last NCHW view
+    with torch.set_grad_enabled(train):
+        y = module(tx)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    np.testing.assert_allclose(_np(y.permute(0, 2, 3, 1)), y_ref, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(module.running_mean.numpy(), stats_ref["mean"], rtol=1e-12)
+    np.testing.assert_allclose(module.running_var.numpy(), stats_ref["var"], rtol=1e-12)

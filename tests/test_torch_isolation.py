@@ -1,0 +1,127 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+asking it for a card that is absent raises instead of running on the CPU."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import fullbatchtraining_tpu_torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PACKAGE = pathlib.Path(fullbatchtraining_tpu_torch.__file__).parent
+FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|flax|optax|fullbatchtraining_tpu)(\s|\.|$|,)", re.MULTILINE)
+TINY = ["hyp=fb1", "model=resnet18", "model.width=4", "data.path=/tmp/__torch_nodata__",
+        "dryrun=True"]
+
+
+def _modules():
+    return sorted("fullbatchtraining_tpu_torch." + ".".join(
+        p.relative_to(PACKAGE).with_suffix("").parts).removesuffix(".__init__")
+        for p in PACKAGE.rglob("*.py"))
+
+
+def test_importing_every_module_loads_no_jax():
+    script = f"""
+import importlib, sys
+for name in {_modules()!r}:
+    importlib.import_module(name.removesuffix("."))
+bad = [m for m in sys.modules if m in ("jax", "flax", "optax") or m.split(".")[0] in
+       ("jax", "flax", "optax") or m == "fullbatchtraining_tpu"
+       or m.startswith("fullbatchtraining_tpu.")]
+assert not bad, bad
+print("ISOLATED", len({_modules()!r}))
+"""
+    run = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert run.returncode == 0, run.stdout + run.stderr
+    assert "ISOLATED" in run.stdout
+
+
+def test_source_has_no_jax_import():
+    files = list(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    offenders = [str(f) for f in files if FORBIDDEN.search(f.read_text())]
+    assert not offenders, offenders
+
+
+def test_train_on_absent_card_raises(config_dir, monkeypatch):
+    from fullbatchtraining_tpu_torch.config import load_config
+    from fullbatchtraining_tpu_torch.data import construct_databundle
+    from fullbatchtraining_tpu_torch.models import construct_model
+    from fullbatchtraining_tpu_torch.training import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = load_config(config_dir, overrides=TINY)
+    bundle = construct_databundle(cfg.data, dryrun=True)
+    model = construct_model(cfg.model, bundle.channels, bundle.classes)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train(model, bundle, cfg, device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        train(model, bundle, cfg)  # the default device is the card
+
+
+@pytest.mark.parametrize("device", ["cpu", "default"])
+def test_cli_dryrun(device, tmp_path):
+    """``python -m fullbatchtraining_tpu_torch`` runs the main path here with
+    +impl.device=cpu, and refuses to start without a card otherwise."""
+    args = TINY + [f"base_dir={tmp_path}"] + (["+impl.device=cpu"] if device == "cpu" else [])
+    run = subprocess.run([sys.executable, "-m", "fullbatchtraining_tpu_torch", *args],
+                         cwd=ROOT, capture_output=True, text=True, timeout=300)
+    if device == "cpu" or torch.cuda.is_available():
+        assert run.returncode == 0, run.stdout + run.stderr
+        assert "Final validation accuracy" in run.stdout
+    else:
+        assert run.returncode != 0
+        assert "torch.cuda.is_available() is False" in run.stderr
+
+
+BOUNDARIES = {
+    "stochastic": ["hyp.train_stochastic=True"],
+    "shuffle": ["hyp.shuffle=True"],
+    "gradreg": ["hyp.grad_reg.block_strength=0.5"],
+    "checkpoint": ["impl.checkpoint.name=run.ckpt"],
+    "distributed": ["impl/setup=distributed"],
+    "analysis": ["analysis=full"],
+    "trace": ["impl.trace=True"],
+    "float16-compute": ["impl.compute_dtype=float16"],
+    "float16-params": ["impl.dtype=float16"],
+    "adam": ["hyp/optim=adam"],
+    "sam": ["hyp/optim_modification=SAM"],
+    "densenet": ["model=densenet121"],
+    "groupnorm": ["model.normalization=GroupNorm"],
+    "baked-db": ["data/db=baked"],
+    "tinyimagenet": ["data=TinyImageNet"],
+    "resize-eval": ["+data.augmentations_val.Resize=32"],
+}
+
+
+@pytest.mark.parametrize("case", list(BOUNDARIES))
+def test_modes_outside_the_slice_raise(case, config_dir):
+    """Each mode the port does not run yet raises NotImplementedError naming
+    an item that ROADMAP.md has."""
+    from fullbatchtraining_tpu_torch.config import load_config
+    from fullbatchtraining_tpu_torch.data import construct_databundle
+    from fullbatchtraining_tpu_torch.models import construct_model
+    from fullbatchtraining_tpu_torch.training import train
+
+    swaps_model = any(o.startswith("model=") for o in BOUNDARIES[case])
+    base = [o for o in TINY if not (swaps_model and o.startswith("model"))]
+    cfg = load_config(config_dir, overrides=base + BOUNDARIES[case])
+    with pytest.raises(NotImplementedError) as err:
+        bundle = construct_databundle(cfg.data, dryrun=True)
+        model = construct_model(cfg.model, bundle.channels, bundle.classes)
+        train(model, bundle, cfg, device="cpu")
+    item = re.search(r"ROADMAP\.md, '([^']+)'", str(err.value))
+    assert item, str(err.value)
+    assert f"**{item.group(1)}" in (ROOT / "ROADMAP.md").read_text(), item.group(1)
+
+
+def test_multirun_raises():
+    from fullbatchtraining_tpu_torch.__main__ import main
+
+    with pytest.raises(NotImplementedError, match="Multirun sweeps"):
+        main(["--multirun", "hyp=fb1", "seed=0,1"])

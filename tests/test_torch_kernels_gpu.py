@@ -1,0 +1,120 @@
+"""The port's CUDA BatchNorm kernels against their plain versions, on the card.
+
+Marked ``gpu``: they skip where CUDA is absent. Run them on a card with
+
+    python -m pytest -m gpu tests/test_torch_kernels_gpu.py
+
+Shapes are ResNet-18's BN inputs at a small batch (stage 1 and 4) plus a
+ragged row count and a channel count that is not a multiple of the 32-channel
+tile. Tolerances, relative to the size of the terms summed: float32 sums
+1e-5 and bfloat16-input sums 1e-5 (float32 accumulation in another order),
+float64 1e-12; elementwise outputs 2 ulp of the output dtype (an FMA may
+round once where the plain version rounds twice).
+"""
+
+import pytest
+import torch
+
+from fullbatchtraining_tpu_torch.ops import bn
+
+pytestmark = pytest.mark.gpu
+
+SHAPES = [(8 * 1024, 64), (8 * 16, 512), (1000, 96), (333, 40)]
+DTYPES = [torch.float32, torch.bfloat16, torch.float64]
+SUM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-5, torch.float64: 1e-12}
+ULP = {torch.float32: 2.0 ** -23, torch.bfloat16: 2.0 ** -7, torch.float64: 2.0 ** -52}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _data(shape, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn(shape, generator=g, device=device) * 1.5 + 0.3).to(dtype)
+
+
+def _coef(k, c, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((k, c), generator=g, device=device, dtype=bn.stat_dtype(dtype))
+
+
+def _assert_sums_close(ours, ref, scale, dtype):
+    err = ((ours - ref).abs() / scale.clamp_min(1e-30)).max().item()
+    assert err <= SUM_TOL[dtype], err
+
+
+def _assert_elementwise_close(ours, ref, magnitude, dtype):
+    diff = (ours.to(torch.float64) - ref.to(torch.float64)).abs()
+    bound = 2 * ULP[dtype] * (magnitude.to(torch.float64) + ref.to(torch.float64).abs())
+    assert bool((diff <= bound).all()), (diff - bound).max().item()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_reductions_match_plain(cuda, shape, dtype):
+    x = _data(shape, dtype, cuda, 0)
+    dy = _data(shape, dtype, cuda, 1)
+    before = dict(bn.launches)
+    s, r = bn.stats(x), bn.bwd_reduce(dy, x)
+    torch.cuda.synchronize()
+    assert bn.launches["stats"] == before["stats"] + 1
+    assert bn.launches["bwd_reduce"] == before["bwd_reduce"] + 1
+    with bn.plain_versions():
+        s_ref, r_ref = bn.stats(x), bn.bwd_reduce(dy, x)
+        s_abs = bn.stats(x.abs())
+        r_abs = bn.bwd_reduce(dy.abs(), x.abs())
+    _assert_sums_close(s, s_ref, s_abs, dtype)
+    _assert_sums_close(r, r_ref, r_abs, dtype)
+    assert torch.equal(s, bn.stats(x)), "stats is not bitwise repeatable"
+    assert torch.equal(r, bn.bwd_reduce(dy, x)), "bwd_reduce is not bitwise repeatable"
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_elementwise_match_plain(cuda, shape, dtype):
+    x = _data(shape, dtype, cuda, 2)
+    dy = _data(shape, dtype, cuda, 3)
+    ab = _coef(2, shape[1], dtype, cuda, 4)
+    coef = _coef(3, shape[1], dtype, cuda, 5)
+    y, dx = bn.apply(x, ab), bn.bwd_apply(dy, x, coef)
+    torch.cuda.synchronize()
+    with bn.plain_versions():
+        y_ref, dx_ref = bn.apply(x, ab), bn.bwd_apply(dy, x, coef)
+    assert y.dtype == dx.dtype == dtype
+    acc = bn.stat_dtype(dtype)
+    _assert_elementwise_close(y, y_ref, (x.to(acc) * ab[0]).abs() + ab[1].abs(), dtype)
+    _assert_elementwise_close(
+        dx, dx_ref, (dy.to(acc) * coef[0]).abs() + coef[1].abs() + (x.to(acc) * coef[2]).abs(),
+        dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+def test_bn_train_matches_reference(cuda, dtype):
+    """BNTrain on the kernels against autograd through stock ops."""
+    x = _data((4, 16, 16, 64), dtype, cuda, 6).requires_grad_()
+    scale = _coef(1, 64, dtype, cuda, 7)[0].add(1.0).requires_grad_()
+    bias = _coef(1, 64, dtype, cuda, 8)[0].requires_grad_()
+    cot = _data((4, 16, 16, 64), dtype, cuda, 9)
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    outs = bn.bn_train(x, scale, bias)
+    refs = bn.bn_train_reference(x, scale, bias)
+    for o, r in zip(outs, refs):
+        torch.testing.assert_close(o, r, rtol=tol, atol=tol)
+    grads = torch.autograd.grad(outs[0], (x, scale, bias), cot)
+    grads_ref = torch.autograd.grad(refs[0], (x, scale, bias), cot)
+    for g, r in zip(grads, grads_ref):
+        torch.testing.assert_close(g, r, rtol=tol, atol=tol * r.abs().max().item())
+
+
+def test_wrong_input_raises(cuda):
+    x = torch.zeros((64, 8), device=cuda)
+    with pytest.raises(ValueError):
+        bn.stats(x.t())  # not contiguous
+    with pytest.raises(TypeError):
+        bn.stats(x.half())
+    with pytest.raises(ValueError):
+        bn.apply(x, torch.zeros((2, 8), device=cuda, dtype=torch.float64))
