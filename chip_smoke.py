@@ -7,13 +7,19 @@ Phases, in order; any failure exits non-zero before the result lines:
 
 1. The card (``nvidia-smi`` name and power limit), versions, and the build of
    the port's CUDA kernels from ``fullbatchtraining_tpu_torch/ops/csrc``
-   (``nvcc -Xptxas -v``: registers and spills per kernel).
+   (``nvcc -Xptxas -v``: registers and spills per kernel; the 16-byte kernels
+   ``apply_kernel`` and ``bwd_reduce_partial`` must not spill).
 2. Every kernel against its plain PyTorch version at ResNet-18/CIFAR's BN
    shapes for a chunk of 2048 images (the bench shape), in float32 and
    bfloat16, plus BNTrain forward+backward; times of kernel, plain version,
    the one-call PyTorch equivalent (the CUDA batch-norm functions that
    SyncBatchNorm calls; ``F.batch_norm`` for ``apply`` and BNTrain), and the
-   bound (bytes each function must move over 3.35 TB/s).
+   bound (bytes each function must move over 3.35 TB/s). Each launch logs
+   the bytes a thread moved per access; ``apply`` and ``bwd_reduce`` must take
+   16 bytes there, and run once more on a copy of ``x`` one element off
+   16-byte alignment, which takes their one-element width (checked and timed
+   as ``narrow_ms``). Beside each kernel's time, ``host_ms``: the host's
+   time to enqueue one call of its wrapper.
 3. One float32 full-batch step of the main path (ResNet-18, 8192 images in
    chunks of 512) with the kernels, and the same step under
    ``ops.bn.plain_versions()``: loss, gradient norm, parameters and running
@@ -21,7 +27,8 @@ Phases, in order; any failure exits non-zero before the result lines:
 4. The main path at full width through ``training.train``, the function
    ``python -m fullbatchtraining_tpu_torch`` calls: ``model=resnet18
    data=CIFAR10 hyp=fb1``, 3 steps over 50,000 synthetic images in chunks of
-   2048 under bf16 autocast. Launch counts must show every kernel on the path.
+   2048 under bf16 autocast. Launch counts must show every kernel on the path,
+   and every ``apply`` and ``bwd_reduce`` launch at 16 bytes a thread.
 5. One more full-width step under ``torch.profiler``, after a warm-up step:
    device time by kernel class, and the device's busy share: that step's
    device time over the wall time of the next step, run without the
@@ -89,6 +96,20 @@ def cuda_ms(torch, fn, iters=30, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_ms(torch, fn, iters=30) -> float:
+    """The host's time to enqueue one call: ``iters`` calls with no sync in
+    between (far fewer than fill the launch queue). Where it reaches
+    :func:`cuda_ms` of the same call, that time is the host's, not the
+    kernel's."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * elapsed / iters
+
+
 def bound_ms(name, m, c, itemsize) -> float:
     return 1e3 * BYTES_PER_ELEMENT[name] * m * c * itemsize / HBM_BYTES_PER_S
 
@@ -96,6 +117,25 @@ def bound_ms(name, m, c, itemsize) -> float:
 def check(cond, what):
     if not cond:
         raise AssertionError(what)
+
+
+def spills(compiler: str) -> dict:
+    """``{kernel: (spill store bytes, spill load bytes)}`` from ``-Xptxas -v``."""
+    out, name = {}, None
+    for line in compiler.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for", 1)[1].strip()
+        elif "spill stores" in line and name:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            out[name] = (nums[1], nums[2])  # stack frame, spill stores, spill loads
+    return out
+
+
+def access_bytes(bn, name, before, itemsize) -> int:
+    """Bytes a thread moved per access in the launch just made: 16 where
+    the wrapper counted a 16-byte launch, else one element."""
+    counted = name in bn.vector_launches and bn.vector_launches[name] > before[name]
+    return 16 if counted else itemsize
 
 
 # ---------------------------------------------------------------------------
@@ -127,37 +167,73 @@ def phase_kernels(torch, bn):
             calls = {"stats": lambda: bn.stats(x), "bwd_reduce": lambda: bn.bwd_reduce(dy, x),
                      "apply": lambda: bn.apply(x, ab),
                      "bwd_apply": lambda: bn.bwd_apply(dy, x, coef)}
+            # x one element off 16-byte alignment: apply and bwd_reduce take
+            # their one-element width on it
+            x_off = torch.empty(m * c + 1, dtype=dtype, device=dev)[1:].view(m, c)
+            x_off.copy_(x)
+            narrow = {"apply": lambda: bn.apply(x_off, ab),
+                      "bwd_reduce": lambda: bn.bwd_reduce(dy, x_off)}
             library = library_calls(torch, F, x, dy, ab, hw, c)
             for name, call in calls.items():
+                before = dict(bn.vector_launches)
                 out = call()
                 torch.cuda.synchronize()
-                err = (out.double() - plain[name].double()).abs()
-                if name in ("stats", "bwd_reduce"):
-                    rel = (err / scale[name].double().clamp_min(1e-30)).max().item()
-                    ok = rel <= SUM_TOL
-                    tol = f"{SUM_TOL:g} of sum|terms|"
-                else:
-                    size = scale[name].double() + plain[name].double().abs()
-                    rel = (err / size.clamp_min(1e-30)).max().item()
-                    ok = rel <= 2 * ULP[dtype_name]
-                    tol = f"2 ulp of {dtype_name} relative to the terms"
+                width = access_bytes(bn, name, before, x.element_size())
+                err, rel, tol = against_plain(name, out, plain[name], scale[name], dtype_name)
                 with bn.plain_versions():
                     plain_ms = cuda_ms(torch, call)
                 row = {"kernel": name, "dtype": dtype_name, "m": m, "c": c,
-                       "max_abs_err": err.max().item(), "max_rel_err": rel, "tolerance": tol,
-                       "ms": cuda_ms(torch, call), "plain_ms": plain_ms,
-                       "library_ms": cuda_ms(torch, library[name]),
+                       "access_bytes": width,
+                       "max_abs_err": err, "max_rel_err": rel, "tolerance": tol,
+                       "ms": cuda_ms(torch, call), "host_ms": host_ms(torch, call),
+                       "plain_ms": plain_ms, "library_ms": cuda_ms(torch, library[name]),
                        "bound_ms": bound_ms(name, m, c, x.element_size())}
                 rows.append(row)
-                log(f"  {name:10s} {dtype_name:8s} M={m:8d} C={c:3d} "
-                    f"max_abs_err={row['max_abs_err']:.3e} rel={rel:.2e} (tol {tol}) "
-                    f"kernel {row['ms']:.4f} ms  plain {plain_ms:.4f} ms  "
+                log(f"  {name:10s} {dtype_name:8s} M={m:8d} C={c:3d} {width:2d} B/access "
+                    f"max_abs_err={err:.3e} rel={rel:.2e} (tol {tol:g} of the terms) "
+                    f"kernel {row['ms']:.4f} ms (host {row['host_ms']:.4f})  "
+                    f"plain {plain_ms:.4f} ms  "
                     f"library {row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms")
-                check(ok, f"{name} {dtype_name} M={m} C={c} disagrees with its plain version")
+                check(rel <= tol,
+                      f"{name} {dtype_name} M={m} C={c} disagrees with its plain version")
+                if name in narrow:
+                    check(width == 16, f"{name} {dtype_name} C={c} took {width}-byte accesses")
+                    row.update(narrow_run(torch, bn, name, narrow[name], plain[name], scale[name],
+                                          dtype_name, x.element_size()))
             rows.append(phase_bn_train(torch, bn, F, x, dy, dtype_name, hw, c))
-            del x, dy, plain, scale, calls, library
+            del x, dy, x_off, plain, scale, calls, narrow, library
             torch.cuda.empty_cache()
     return rows
+
+
+def narrow_run(torch, bn, name, call, plain, scale, dtype_name, itemsize):
+    """``call`` runs kernel ``name`` on an input one element off 16-byte
+    alignment: it must take the one-element width and agree with the plain
+    version as closely as the 16-byte launch must."""
+    before = dict(bn.vector_launches)
+    out = call()
+    torch.cuda.synchronize()
+    _, rel, tol = against_plain(name, out, plain, scale, dtype_name)
+    result = {"narrow_max_rel_err": rel, "narrow_ms": cuda_ms(torch, call)}
+    log(f"  {name:10s} {dtype_name:8s} offset x, {itemsize} B/access: rel={rel:.2e} "
+        f"kernel {result['narrow_ms']:.4f} ms")
+    check(bn.vector_launches[name] == before[name],
+          f"{name} on an offset input still took 16-byte accesses")
+    check(rel <= tol,
+          f"{name} {dtype_name} at one element a thread disagrees with its plain version")
+    return result
+
+
+def against_plain(name, out, plain, scale, dtype_name):
+    """(max abs error, max error relative to the size of the terms, tolerance):
+    sums within SUM_TOL of sum |terms|, elementwise outputs within 2 ulp of
+    their dtype of |terms| + |plain output|."""
+    err = (out.double() - plain.double()).abs()
+    if name in ("stats", "bwd_reduce"):
+        size, tol = scale.double(), SUM_TOL
+    else:
+        size, tol = scale.double() + plain.double().abs(), 2 * ULP[dtype_name]
+    return err.max().item(), (err / size.clamp_min(1e-30)).max().item(), tol
 
 
 def library_calls(torch, F, x, dy, ab, hw, c):
@@ -305,7 +381,7 @@ def phase_full_width(torch, bn):
     t0 = time.time()
     cfg, bundle, _, _, stats = run_main_path(torch, FULL_WIDTH)
     wall = time.time() - t0
-    counts, copies = dict(bn.launches), bn.layout_copies
+    counts, wide, copies = dict(bn.launches), dict(bn.vector_launches), bn.layout_copies
     blocks, chunks, sub = epoch_layout(bundle.size, bundle.batch_size, cfg.hyp.sub_batch)
     images = blocks * chunks * sub
     evals = len(stats["valid_loss"])
@@ -318,14 +394,15 @@ def phase_full_width(torch, bn):
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
         "train_loss": stats["train_loss"], "train_acc": stats["train_acc"],
         "valid_loss": stats["valid_loss"], "valid_acc": stats["valid_acc"],
-        "launches": counts, "layout_copies": copies, "evals": evals, "wall_s": wall,
+        "launches": counts, "vector_launches": wide, "layout_copies": copies, "evals": evals,
+        "wall_s": wall,
     }
     for i, t in enumerate(stats["train_time"]):
         log(f"  step {i + 1}: {t:.3f} s, {images / t:.0f} images/s, "
             f"train loss {stats['train_loss'][i]:.4f} acc {stats['train_acc'][i]:.4f}")
     log(f"  valid loss {stats['valid_loss']}, valid acc {stats['valid_acc']}")
     log(f"  peak memory {result['peak_memory_gib']:.2f} GiB; launches {counts}; "
-        f"layout_copies {copies}; evaluations {evals}")
+        f"of them at 16 bytes a thread {wide}; layout_copies {copies}; evaluations {evals}")
     check(steps == 3 and evals == 2, f"{steps} steps and {evals} evaluations, expected 3 and 2")
     for name in ("stats", "bwd_reduce", "bwd_apply"):
         check(counts[name] == per_step * steps,
@@ -333,6 +410,8 @@ def phase_full_width(torch, bn):
     check(counts["apply"] == per_step * steps + BN_LAYERS * eval_blocks * evals,
           f"apply: {counts['apply']} launches, expected {per_step} per step + "
           f"{BN_LAYERS * eval_blocks} per evaluation")
+    for name, n in wide.items():
+        check(n == counts[name], f"{name}: {n} of {counts[name]} launches at 16 bytes a thread")
     check(all(map(math.isfinite, stats["train_loss"] + stats["valid_loss"])),
           "non-finite loss")
     return result
@@ -423,6 +502,10 @@ def main() -> int:
     for line in compiler.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"    {line.strip()}")
+    spilled = {k: v for k, v in spills(compiler).items()
+               if ("apply_kernel" in k or "bwd_reduce_partial" in k) and v != (0, 0)}
+    check(compiler and not spilled, f"16-byte kernels spill (store, load bytes): {spilled}"
+          if compiler else "no compiler output to check for spills")
 
     log("[2] kernels against their plain versions (chunk of 2048 images)")
     rows = phase_kernels(torch, bn)

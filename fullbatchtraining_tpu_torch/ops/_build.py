@@ -48,10 +48,12 @@ def library_path(name: str) -> Path:
 def build(name: str) -> tuple[Path, str]:
     """Compile ``csrc/<name>.cu`` unless its library exists. Returns the
     library path and the compiler's output (``-Xptxas -v``: registers,
-    shared memory and spills of every kernel; empty when already built)."""
+    shared memory and spills of every kernel), kept beside the library in
+    ``<library>.log`` so that a library built earlier reports it too."""
     out = library_path(name)
+    log = out.with_suffix(".log")
     if out.exists():
-        return out, ""
+        return out, log.read_text() if log.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -60,6 +62,7 @@ def build(name: str) -> tuple[Path, str]:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({run.returncode}): {' '.join(cmd)}\n"
                            f"{run.stdout}{run.stderr}")
+    log.write_text(run.stdout + run.stderr)
     tmp.replace(out)  # atomic: a concurrent loader never sees a partial file
     return out, run.stdout + run.stderr
 

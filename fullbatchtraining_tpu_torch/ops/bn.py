@@ -16,6 +16,11 @@ for a CPU tensor; nothing falls back from one to the other. Inside
 chip smoke compare the two that way). Each kernel launch adds one to
 ``launches[name]``.
 
+``apply`` and ``bwd_reduce`` move 16 bytes a thread per access where they
+can; :func:`launch_plan` picks the width from ``C``, the dtype and the
+tensors' addresses, and each launch at 16 bytes also adds one to
+``vector_launches[name]``.
+
 Sums and coefficients are kept in ``promote(x.dtype, float32)``: float32 for
 float32 and bfloat16 inputs, float64 for float64 (the rule of the model's
 BatchNorm, ``_TorchBatchNorm.stat_dtype``).
@@ -32,6 +37,8 @@ import torch
 from . import _build
 
 launches = {"stats": 0, "apply": 0, "bwd_reduce": 0, "bwd_apply": 0}
+# launches of the kernels with a width argument that took the 16-byte width
+vector_launches = {"apply": 0, "bwd_reduce": 0}
 # channels-last copies BNTrain had to make of an input or an incoming gradient
 layout_copies = 0
 
@@ -40,12 +47,17 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float64: "f64"}
 _BLOCKS_PER_SM = 8      # 256-thread blocks resident per SM (2048 threads)
 _CHANNEL_TILE = 32      # channels per block (csrc TX)
 _MIN_ROWS_PER_BLOCK = 64
+# G of apply and bwd_reduce: one wave of the blocks per SM that their
+# __launch_bounds__ keep resident (csrc MIN_BLOCKS)
+_VEC_BLOCKS_PER_SM = 3
+_MIN_ELEMENTS_PER_BLOCK = 8192
 
 
 def reset_counts() -> None:
     global layout_copies
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, vector_launches):
+        for name in counts:
+            counts[name] = 0
     layout_copies = 0
 
 
@@ -103,7 +115,8 @@ def _library() -> ctypes.CDLL:
     for suffix in _SUFFIX.values():
         for name, nptr in (("stats", 3), ("apply", 3), ("bwd_reduce", 4), ("bwd_apply", 4)):
             fn = getattr(lib, f"fbt_bn_{name}_{suffix}")
-            fn.argtypes = [ptr] * nptr + [i64, i32, i32, ptr]
+            widths = [i32] if name in vector_launches else []
+            fn.argtypes = [ptr] * nptr + [i64, i32, i32] + widths + [ptr]
             fn.restype = ctypes.c_int
     return lib
 
@@ -120,6 +133,26 @@ def _row_blocks(device: torch.device, m: int, c: int) -> int:
     tiles = -(-c // _CHANNEL_TILE)
     target = max(1, _sm_count(device.index) * _BLOCKS_PER_SM // tiles)
     return max(1, min(target, -(-m // _MIN_ROWS_PER_BLOCK)))
+
+
+def launch_plan(sm_count: int, m: int, c: int, dtype: torch.dtype,
+                *addresses: int) -> tuple[int, int]:
+    """``(G, vec)``, the last two launch arguments of ``apply`` and
+    ``bwd_reduce`` for ``[m, c]`` tensors of ``dtype`` at ``addresses`` on a
+    card with ``sm_count`` SMs.
+
+    ``vec``, the channels a thread moves in one access, is ``16 / itemsize``
+    where ``c`` is a multiple of that and every address is 16-byte aligned,
+    else 1 (a view with a storage offset need not be aligned; the caching
+    allocator's blocks are). ``G``, the row ranges, fills every SM's resident
+    blocks once, with no fewer than ``_MIN_ELEMENTS_PER_BLOCK`` elements a
+    block, and depends on ``(sm_count, m, c)`` alone. The reduction's
+    summation order follows ``G`` and ``vec`` (a thread's row lanes are
+    ``vec`` wide), so it is fixed for a card, a shape and a width."""
+    wide = 16 // dtype.itemsize
+    vec = 1 if c % wide or any(a % 16 for a in addresses) else wide
+    g = max(1, min(sm_count * _VEC_BLOCKS_PER_SM, -(-m * c // _MIN_ELEMENTS_PER_BLOCK)))
+    return g, vec
 
 
 def _use_kernel(*tensors: torch.Tensor) -> bool:
@@ -153,6 +186,22 @@ def _coefficients(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return k.contiguous()
 
 
+def _grid(name: str, x: torch.Tensor, addresses: list[int]) -> tuple[int, ...]:
+    """The arguments after ``(m, C)``: ``(G,)`` for ``stats`` and
+    ``bwd_apply``; ``(G, vec)`` from :func:`launch_plan` for the kernels
+    with a width (``addresses``: of every ``[M, C]`` operand, output included)."""
+    m, c = x.shape
+    if name in vector_launches:
+        return launch_plan(_sm_count(x.device.index), m, c, x.dtype, *addresses)
+    return (_row_blocks(x.device, m, c),)
+
+
+def _launched(name: str, grid: tuple[int, ...]) -> None:
+    launches[name] += 1
+    if name in vector_launches and grid[1] > 1:
+        vector_launches[name] += 1
+
+
 def _reduce(name: str, plain, *inputs: torch.Tensor) -> torch.Tensor:
     if not _use_kernel(*inputs):
         return plain(*inputs)
@@ -162,12 +211,13 @@ def _reduce(name: str, plain, *inputs: torch.Tensor) -> torch.Tensor:
     out = torch.empty((2, c), dtype=acc, device=x.device)
     if m == 0 or c == 0:
         return out.zero_()
-    g = _row_blocks(x.device, m, c)
-    ws = torch.empty((g, 2, c), dtype=acc, device=x.device)
+    ptrs = [t.data_ptr() for t in inputs]
+    grid = _grid(name, x, ptrs)
+    ws = torch.empty((grid[0], 2, c), dtype=acc, device=x.device)
     fn = getattr(_library(), f"fbt_bn_{name}_{_SUFFIX[x.dtype]}")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    _check(fn(*(t.data_ptr() for t in inputs), ws.data_ptr(), out.data_ptr(), m, c, g, stream), name)
-    launches[name] += 1
+    _check(fn(*ptrs, ws.data_ptr(), out.data_ptr(), m, c, *grid, stream), name)
+    _launched(name, grid)
     return out
 
 
@@ -180,11 +230,12 @@ def _elementwise(name: str, plain, coef: torch.Tensor, *inputs: torch.Tensor) ->
     out = torch.empty_like(x)
     if m == 0 or c == 0:
         return out
-    g = _row_blocks(x.device, m, c)
+    ptrs = [t.data_ptr() for t in (*inputs, out)]
+    grid = _grid(name, x, ptrs)
     fn = getattr(_library(), f"fbt_bn_{name}_{_SUFFIX[x.dtype]}")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    _check(fn(*(t.data_ptr() for t in inputs), coef.data_ptr(), out.data_ptr(), m, c, g, stream), name)
-    launches[name] += 1
+    _check(fn(*ptrs[:-1], coef.data_ptr(), ptrs[-1], m, c, *grid, stream), name)
+    _launched(name, grid)
     return out
 
 

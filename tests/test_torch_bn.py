@@ -185,3 +185,75 @@ def test_batchnorm2d_matches_flax(train):
     np.testing.assert_allclose(_np(y.permute(0, 2, 3, 1)), y_ref, rtol=1e-12, atol=1e-12)
     np.testing.assert_allclose(module.running_mean.numpy(), stats_ref["mean"], rtol=1e-12)
     np.testing.assert_allclose(module.running_var.numpy(), stats_ref["var"], rtol=1e-12)
+
+
+# --------------------------------------------------------------------------
+# the launch plan of the 16-byte kernels (apply, bwd_reduce): a pure function
+# --------------------------------------------------------------------------
+
+H100_SMS = 132
+KERNEL_DTYPES = [torch.float32, torch.bfloat16, torch.float64]
+# ResNet-18's BN inputs [M, C] on CIFAR (32x32): stages at H*W = 1024 ... 16,
+# for chunks of 2048 (the bf16 bench shape) and 512 images (fp32, evaluation)
+RESNET18_STAGES = [(1024, 64), (256, 128), (64, 256), (16, 512)]
+ALIGNED = 0x7F3A_0000_0200   # a caching-allocator address (512-byte aligned)
+
+
+@pytest.mark.parametrize("dtype", KERNEL_DTYPES, ids=str)
+@pytest.mark.parametrize("hw,c", RESNET18_STAGES, ids=lambda v: str(v))
+def test_launch_plan_takes_16_bytes_on_resnet18(hw, c, dtype):
+    for images in (2048, 512, 8):
+        m = images * hw
+        g, vec = bn.launch_plan(H100_SMS, m, c, dtype, ALIGNED, ALIGNED + m * c * dtype.itemsize)
+        assert vec * dtype.itemsize == 16
+        assert 1 <= g <= 3 * H100_SMS
+
+
+@pytest.mark.parametrize("c,dtype,offset", [
+    (12, torch.bfloat16, 0),     # 12 % 8
+    (3, torch.float32, 0),
+    (6, torch.float32, 0),       # 6 % 4
+    (3, torch.float64, 0),
+    (64, torch.bfloat16, 2),     # buf[1:] of a bf16 buffer
+    (64, torch.float32, 4),
+    (64, torch.float64, 8),
+    (520, torch.bfloat16, 8),    # 8-byte aligned is not enough
+], ids=str)
+def test_launch_plan_takes_one_element_where_16_bytes_cannot(c, dtype, offset):
+    _, vec = bn.launch_plan(H100_SMS, 333, c, dtype, ALIGNED, ALIGNED + offset)
+    assert vec == 1
+
+
+@pytest.mark.parametrize("c,dtype", [(4096, torch.bfloat16), (520, torch.float64),
+                                     (2048, torch.bfloat16), (1024, torch.float32)], ids=str)
+def test_launch_plan_checks_every_address(c, dtype):
+    """One operand off alignment (the input, the output, or dy) is enough
+    for one element a thread; rows wider than a block take 16 bytes too."""
+    step = dtype.itemsize
+    assert bn.launch_plan(H100_SMS, 333, c, dtype, ALIGNED, ALIGNED + 512)[1] * step == 16
+    for addresses in [(ALIGNED + step, ALIGNED), (ALIGNED, ALIGNED + step),
+                      (ALIGNED, ALIGNED, ALIGNED + 16 + step)]:
+        assert bn.launch_plan(H100_SMS, 333, c, dtype, *addresses)[1] == 1
+
+
+@pytest.mark.parametrize("sms", [1, 132, 144])
+def test_launch_plan_row_blocks_depend_on_sms_m_and_c_alone(sms):
+    """G is the same for every dtype and address, at most 3 blocks an SM,
+    and no block under 8192 elements unless one block holds everything."""
+    for m in (1, 333, 16 * 512, 2048 * 1024):
+        for c in (3, 12, 64, 512, 4096):
+            gs = {bn.launch_plan(sms, m, c, dtype, ALIGNED + off)[0]
+                  for dtype in KERNEL_DTYPES for off in (0, 2, 4, 8)}
+            assert len(gs) == 1, (m, c, gs)
+            (g,) = gs
+            assert 1 <= g <= 3 * sms
+            assert g == 1 or m * c >= 8192 * (g - 1)
+    assert bn.launch_plan(sms, 2048 * 1024, 64, torch.bfloat16, ALIGNED)[0] == 3 * sms
+
+
+def test_cpu_tensors_launch_nothing():
+    before = (dict(bn.launches), dict(bn.vector_launches))
+    x = torch.randn(64, 16)
+    bn.apply(x, torch.randn(2, 16))
+    bn.bwd_reduce(x, x)
+    assert (bn.launches, bn.vector_launches) == before

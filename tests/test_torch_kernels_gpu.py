@@ -6,10 +6,14 @@ Marked ``gpu``: they skip where CUDA is absent. Run them on a card with
 
 Shapes are ResNet-18's BN inputs at a small batch (stage 1 and 4) plus a
 ragged row count and a channel count that is not a multiple of the 32-channel
-tile. Tolerances, relative to the size of the terms summed: float32 sums
-1e-5 and bfloat16-input sums 1e-5 (float32 accumulation in another order),
-float64 1e-12; elementwise outputs 2 ulp of the output dtype (an FMA may
-round once where the plain version rounds twice).
+tile. ``apply`` and ``bwd_reduce`` also run at the edges of their two widths
+(16 bytes a thread, or one element): a channel count below, across and above
+one 256-thread block's row, one that no 16-byte group divides, one row, a
+ragged row count, and an operand 1 element off 16-byte alignment. Tolerances,
+relative to the size of the terms summed: float32 sums 1e-5 and
+bfloat16-input sums 1e-5 (float32 accumulation in another order), float64
+1e-12; elementwise outputs 2 ulp of the output dtype (an FMA may round once
+where the plain version rounds twice).
 """
 
 import pytest
@@ -20,6 +24,8 @@ from fullbatchtraining_tpu_torch.ops import bn
 pytestmark = pytest.mark.gpu
 
 SHAPES = [(8 * 1024, 64), (8 * 16, 512), (1000, 96), (333, 40)]
+EDGE_C = [3, 12, 64, 520, 4096]
+EDGE_M = [1, 333, 16 * 512]
 DTYPES = [torch.float32, torch.bfloat16, torch.float64]
 SUM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-5, torch.float64: 1e-12}
 ULP = {torch.float32: 2.0 ** -23, torch.bfloat16: 2.0 ** -7, torch.float64: 2.0 ** -52}
@@ -35,6 +41,22 @@ def cuda():
 def _data(shape, dtype, device, seed):
     g = torch.Generator(device=device).manual_seed(seed)
     return (torch.randn(shape, generator=g, device=device) * 1.5 + 0.3).to(dtype)
+
+
+def _operand(m, c, dtype, device, seed, aligned):
+    """``[m, c]`` data, at a 16-byte aligned address or one element past one
+    (``buf[1:].view(m, c)`` of a flat buffer)."""
+    offset = 0 if aligned else 1
+    return _data((m * c + offset,), dtype, device, seed)[offset:].view(m, c)
+
+
+def _expected_vec(c, dtype, aligned):
+    wide = 16 // dtype.itemsize
+    return wide if aligned and c % wide == 0 else 1
+
+
+def _counts(name):
+    return bn.launches[name], bn.vector_launches[name]
 
 
 def _coef(k, c, dtype, device, seed):
@@ -118,3 +140,44 @@ def test_wrong_input_raises(cuda):
         bn.stats(x.half())
     with pytest.raises(ValueError):
         bn.apply(x, torch.zeros((2, 8), device=cuda, dtype=torch.float64))
+
+
+EDGES = pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "offset"])
+
+
+@EDGES
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("m", EDGE_M)
+@pytest.mark.parametrize("c", EDGE_C)
+def test_apply_widths_and_edges(cuda, c, m, dtype, aligned):
+    x = _operand(m, c, dtype, cuda, 10, aligned)
+    assert (x.data_ptr() % 16 == 0) == aligned
+    ab = _coef(2, c, dtype, cuda, 11)
+    before = _counts("apply")
+    y = bn.apply(x, ab)
+    torch.cuda.synchronize()
+    wide = _expected_vec(c, dtype, aligned) > 1
+    assert _counts("apply") == (before[0] + 1, before[1] + wide)
+    with bn.plain_versions():
+        y_ref = bn.apply(x, ab)
+    assert y.dtype == dtype and y.shape == (m, c)
+    _assert_elementwise_close(y, y_ref, (x.to(ab.dtype) * ab[0]).abs() + ab[1].abs(), dtype)
+
+
+@EDGES
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("m", EDGE_M)
+@pytest.mark.parametrize("c", EDGE_C)
+def test_bwd_reduce_widths_and_edges(cuda, c, m, dtype, aligned):
+    dy = _operand(m, c, dtype, cuda, 12, True)
+    x = _operand(m, c, dtype, cuda, 13, aligned)
+    before = _counts("bwd_reduce")
+    r = bn.bwd_reduce(dy, x)
+    torch.cuda.synchronize()
+    wide = _expected_vec(c, dtype, aligned) > 1
+    assert _counts("bwd_reduce") == (before[0] + 1, before[1] + wide)
+    with bn.plain_versions():
+        r_ref = bn.bwd_reduce(dy, x)
+        r_abs = bn.bwd_reduce(dy.abs(), x.abs())
+    _assert_sums_close(r, r_ref, r_abs, dtype)
+    assert torch.equal(r, bn.bwd_reduce(dy, x)), "bwd_reduce is not bitwise repeatable"
