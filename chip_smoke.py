@@ -7,18 +7,18 @@ Phases, in order; any failure exits non-zero before the result lines:
 
 1. The card (``nvidia-smi`` name and power limit), versions, and the build of
    the port's CUDA kernels from ``fullbatchtraining_tpu_torch/ops/csrc``
-   (``nvcc -Xptxas -v``: registers and spills per kernel; the 16-byte kernels
-   ``apply_kernel`` and ``bwd_reduce_partial`` must not spill).
+   (``nvcc -Xptxas -v``: registers and spills per kernel; every kernel of
+   ``BN_KERNEL_NAMES`` must be in the report, and none may spill).
 2. Every kernel against its plain PyTorch version at ResNet-18/CIFAR's BN
    shapes for a chunk of 2048 images (the bench shape), in float32 and
    bfloat16, plus BNTrain forward+backward; times of kernel, plain version,
    the one-call PyTorch equivalent (the CUDA batch-norm functions that
    SyncBatchNorm calls; ``F.batch_norm`` for ``apply`` and BNTrain), and the
    bound (bytes each function must move over 3.35 TB/s). Each launch logs
-   the bytes a thread moved per access; ``apply`` and ``bwd_reduce`` must take
-   16 bytes there, and run once more on a copy of ``x`` one element off
-   16-byte alignment, which takes their one-element width (checked and timed
-   as ``narrow_ms``). Beside each kernel's time, ``host_ms``: the host's
+   the bytes a thread moved per access; every kernel must take 16 bytes
+   there, and runs once more on a copy of ``x`` one element off 16-byte
+   alignment, which takes its one-element width (checked and timed as
+   ``narrow_ms``). Beside each kernel's time, ``host_ms``: the host's
    time to enqueue one call of its wrapper.
 3. One float32 full-batch step of the main path (ResNet-18, 8192 images in
    chunks of 512) with the kernels, and the same step under
@@ -28,7 +28,7 @@ Phases, in order; any failure exits non-zero before the result lines:
    ``python -m fullbatchtraining_tpu_torch`` calls: ``model=resnet18
    data=CIFAR10 hyp=fb1``, 3 steps over 50,000 synthetic images in chunks of
    2048 under bf16 autocast. Launch counts must show every kernel on the path,
-   and every ``apply`` and ``bwd_reduce`` launch at 16 bytes a thread.
+   and every launch at 16 bytes a thread.
 5. One more full-width step under ``torch.profiler``, after a warm-up step:
    device time by kernel class, and the device's busy share: that step's
    device time over the wall time of the next step, run without the
@@ -134,8 +134,7 @@ def spills(compiler: str) -> dict:
 def access_bytes(bn, name, before, itemsize) -> int:
     """Bytes a thread moved per access in the launch just made: 16 where
     the wrapper counted a 16-byte launch, else one element."""
-    counted = name in bn.vector_launches and bn.vector_launches[name] > before[name]
-    return 16 if counted else itemsize
+    return 16 if bn.vector_launches[name] > before[name] else itemsize
 
 
 # ---------------------------------------------------------------------------
@@ -167,12 +166,14 @@ def phase_kernels(torch, bn):
             calls = {"stats": lambda: bn.stats(x), "bwd_reduce": lambda: bn.bwd_reduce(dy, x),
                      "apply": lambda: bn.apply(x, ab),
                      "bwd_apply": lambda: bn.bwd_apply(dy, x, coef)}
-            # x one element off 16-byte alignment: apply and bwd_reduce take
-            # their one-element width on it
+            # x one element off 16-byte alignment: every kernel takes its
+            # one-element width on it
             x_off = torch.empty(m * c + 1, dtype=dtype, device=dev)[1:].view(m, c)
             x_off.copy_(x)
-            narrow = {"apply": lambda: bn.apply(x_off, ab),
-                      "bwd_reduce": lambda: bn.bwd_reduce(dy, x_off)}
+            narrow = {"stats": lambda: bn.stats(x_off),
+                      "bwd_reduce": lambda: bn.bwd_reduce(dy, x_off),
+                      "apply": lambda: bn.apply(x_off, ab),
+                      "bwd_apply": lambda: bn.bwd_apply(dy, x_off, coef)}
             library = library_calls(torch, F, x, dy, ab, hw, c)
             for name, call in calls.items():
                 before = dict(bn.vector_launches)
@@ -196,10 +197,9 @@ def phase_kernels(torch, bn):
                     f"library {row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms")
                 check(rel <= tol,
                       f"{name} {dtype_name} M={m} C={c} disagrees with its plain version")
-                if name in narrow:
-                    check(width == 16, f"{name} {dtype_name} C={c} took {width}-byte accesses")
-                    row.update(narrow_run(torch, bn, name, narrow[name], plain[name], scale[name],
-                                          dtype_name, x.element_size()))
+                check(width == 16, f"{name} {dtype_name} C={c} took {width}-byte accesses")
+                row.update(narrow_run(torch, bn, name, narrow[name], plain[name], scale[name],
+                                      dtype_name, x.element_size()))
             rows.append(phase_bn_train(torch, bn, F, x, dy, dtype_name, hw, c))
             del x, dy, x_off, plain, scale, calls, narrow, library
             torch.cuda.empty_cache()
@@ -502,10 +502,11 @@ def main() -> int:
     for line in compiler.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"    {line.strip()}")
-    spilled = {k: v for k, v in spills(compiler).items()
-               if ("apply_kernel" in k or "bwd_reduce_partial" in k) and v != (0, 0)}
-    check(compiler and not spilled, f"16-byte kernels spill (store, load bytes): {spilled}"
-          if compiler else "no compiler output to check for spills")
+    reported = spills(compiler)
+    missing = [k for k in BN_KERNEL_NAMES if not any(k in name for name in reported)]
+    spilled = {k: v for k, v in reported.items() if v != (0, 0)}
+    check(compiler and not missing, f"no -Xptxas -v report for {missing or 'any kernel'}")
+    check(not spilled, f"kernels spill (store, load bytes): {spilled}")
 
     log("[2] kernels against their plain versions (chunk of 2048 images)")
     rows = phase_kernels(torch, bn)
@@ -529,6 +530,9 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": "bytes", "library_ms": total("library_ms")})
+        k = kernels[-1]
+        log(f"  {name:10s} bf16 chunk: {k['ms']:.4f} ms, {k['ms'] / k['library_ms']:.2f}x its "
+            f"library call, {k['ms'] / k['bound_ms']:.2f}x its bound")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(

@@ -16,9 +16,9 @@ for a CPU tensor; nothing falls back from one to the other. Inside
 chip smoke compare the two that way). Each kernel launch adds one to
 ``launches[name]``.
 
-``apply`` and ``bwd_reduce`` move 16 bytes a thread per access where they
-can; :func:`launch_plan` picks the width from ``C``, the dtype and the
-tensors' addresses, and each launch at 16 bytes also adds one to
+Each kernel moves 16 bytes a thread per access where it can;
+:func:`launch_plan` picks the width from ``C``, the dtype and the tensors'
+addresses, and each launch at 16 bytes also adds one to
 ``vector_launches[name]``.
 
 Sums and coefficients are kept in ``promote(x.dtype, float32)``: float32 for
@@ -37,19 +37,16 @@ import torch
 from . import _build
 
 launches = {"stats": 0, "apply": 0, "bwd_reduce": 0, "bwd_apply": 0}
-# launches of the kernels with a width argument that took the 16-byte width
-vector_launches = {"apply": 0, "bwd_reduce": 0}
+# launches that took the 16-byte width
+vector_launches = dict.fromkeys(launches, 0)
 # channels-last copies BNTrain had to make of an input or an incoming gradient
 layout_copies = 0
 
 _force_plain = False
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float64: "f64"}
-_BLOCKS_PER_SM = 8      # 256-thread blocks resident per SM (2048 threads)
-_CHANNEL_TILE = 32      # channels per block (csrc TX)
-_MIN_ROWS_PER_BLOCK = 64
-# G of apply and bwd_reduce: one wave of the blocks per SM that their
-# __launch_bounds__ keep resident (csrc MIN_BLOCKS)
-_VEC_BLOCKS_PER_SM = 3
+# G: one wave of the blocks per SM that the kernels' __launch_bounds__ keep
+# resident (csrc MIN_BLOCKS)
+_BLOCKS_PER_SM = 3
 _MIN_ELEMENTS_PER_BLOCK = 8192
 
 
@@ -115,8 +112,7 @@ def _library() -> ctypes.CDLL:
     for suffix in _SUFFIX.values():
         for name, nptr in (("stats", 3), ("apply", 3), ("bwd_reduce", 4), ("bwd_apply", 4)):
             fn = getattr(lib, f"fbt_bn_{name}_{suffix}")
-            widths = [i32] if name in vector_launches else []
-            fn.argtypes = [ptr] * nptr + [i64, i32, i32] + widths + [ptr]
+            fn.argtypes = [ptr] * nptr + [i64, i32, i32, i32, ptr]
             fn.restype = ctypes.c_int
     return lib
 
@@ -126,32 +122,23 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _row_blocks(device: torch.device, m: int, c: int) -> int:
-    """Row ranges per launch: enough blocks to fill every SM, no fewer than
-    _MIN_ROWS_PER_BLOCK rows each. Depends only on (card, M, C), so the
-    reductions' summation order is fixed for a given card."""
-    tiles = -(-c // _CHANNEL_TILE)
-    target = max(1, _sm_count(device.index) * _BLOCKS_PER_SM // tiles)
-    return max(1, min(target, -(-m // _MIN_ROWS_PER_BLOCK)))
-
-
 def launch_plan(sm_count: int, m: int, c: int, dtype: torch.dtype,
                 *addresses: int) -> tuple[int, int]:
-    """``(G, vec)``, the last two launch arguments of ``apply`` and
-    ``bwd_reduce`` for ``[m, c]`` tensors of ``dtype`` at ``addresses`` on a
-    card with ``sm_count`` SMs.
+    """``(G, vec)``, the last two launch arguments of every kernel for
+    ``[m, c]`` tensors of ``dtype`` at ``addresses`` (of every ``[M, C]``
+    operand, output included) on a card with ``sm_count`` SMs.
 
     ``vec``, the channels a thread moves in one access, is ``16 / itemsize``
     where ``c`` is a multiple of that and every address is 16-byte aligned,
     else 1 (a view with a storage offset need not be aligned; the caching
     allocator's blocks are). ``G``, the row ranges, fills every SM's resident
     blocks once, with no fewer than ``_MIN_ELEMENTS_PER_BLOCK`` elements a
-    block, and depends on ``(sm_count, m, c)`` alone. The reduction's
-    summation order follows ``G`` and ``vec`` (a thread's row lanes are
+    block, and depends on ``(sm_count, m, c)`` alone. The summation order of
+    the reductions follows ``G`` and ``vec`` (a thread's row lanes are
     ``vec`` wide), so it is fixed for a card, a shape and a width."""
     wide = 16 // dtype.itemsize
     vec = 1 if c % wide or any(a % 16 for a in addresses) else wide
-    g = max(1, min(sm_count * _VEC_BLOCKS_PER_SM, -(-m * c // _MIN_ELEMENTS_PER_BLOCK)))
+    g = max(1, min(sm_count * _BLOCKS_PER_SM, -(-m * c // _MIN_ELEMENTS_PER_BLOCK)))
     return g, vec
 
 
@@ -186,19 +173,14 @@ def _coefficients(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return k.contiguous()
 
 
-def _grid(name: str, x: torch.Tensor, addresses: list[int]) -> tuple[int, ...]:
-    """The arguments after ``(m, C)``: ``(G,)`` for ``stats`` and
-    ``bwd_apply``; ``(G, vec)`` from :func:`launch_plan` for the kernels
-    with a width (``addresses``: of every ``[M, C]`` operand, output included)."""
+def _plan(x: torch.Tensor, addresses: list[int]) -> tuple[int, int]:
     m, c = x.shape
-    if name in vector_launches:
-        return launch_plan(_sm_count(x.device.index), m, c, x.dtype, *addresses)
-    return (_row_blocks(x.device, m, c),)
+    return launch_plan(_sm_count(x.device.index), m, c, x.dtype, *addresses)
 
 
-def _launched(name: str, grid: tuple[int, ...]) -> None:
+def _launched(name: str, vec: int) -> None:
     launches[name] += 1
-    if name in vector_launches and grid[1] > 1:
+    if vec > 1:
         vector_launches[name] += 1
 
 
@@ -212,12 +194,12 @@ def _reduce(name: str, plain, *inputs: torch.Tensor) -> torch.Tensor:
     if m == 0 or c == 0:
         return out.zero_()
     ptrs = [t.data_ptr() for t in inputs]
-    grid = _grid(name, x, ptrs)
-    ws = torch.empty((grid[0], 2, c), dtype=acc, device=x.device)
+    g, vec = _plan(x, ptrs)
+    ws = torch.empty((g, 2, c), dtype=acc, device=x.device)
     fn = getattr(_library(), f"fbt_bn_{name}_{_SUFFIX[x.dtype]}")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    _check(fn(*ptrs, ws.data_ptr(), out.data_ptr(), m, c, *grid, stream), name)
-    _launched(name, grid)
+    _check(fn(*ptrs, ws.data_ptr(), out.data_ptr(), m, c, g, vec, stream), name)
+    _launched(name, vec)
     return out
 
 
@@ -231,11 +213,11 @@ def _elementwise(name: str, plain, coef: torch.Tensor, *inputs: torch.Tensor) ->
     if m == 0 or c == 0:
         return out
     ptrs = [t.data_ptr() for t in (*inputs, out)]
-    grid = _grid(name, x, ptrs)
+    g, vec = _plan(x, ptrs)
     fn = getattr(_library(), f"fbt_bn_{name}_{_SUFFIX[x.dtype]}")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    _check(fn(*ptrs[:-1], coef.data_ptr(), ptrs[-1], m, c, *grid, stream), name)
-    _launched(name, grid)
+    _check(fn(*ptrs[:-1], coef.data_ptr(), ptrs[-1], m, c, g, vec, stream), name)
+    _launched(name, vec)
     return out
 
 

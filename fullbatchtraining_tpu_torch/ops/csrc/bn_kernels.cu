@@ -2,39 +2,34 @@
 // the four Pallas kernels in fullbatchtraining_tpu/ops/pallas_bn.py.
 //
 // Every kernel works on the row-major [M, C] view of a channels-last
-// activation: row r is one (n, h, w) position, column c one channel. Each
-// block takes one contiguous range of rows (blockIdx.x), so a thread keeps
-// its channels (and their per-channel coefficients or sums) in registers for
-// its whole range. Two layouts:
+// activation: row r is one (n, h, w) position, column c one channel. A block
+// of THREADS threads takes one contiguous range of rows (blockIdx.x), so a
+// thread keeps its channels (and their per-channel coefficients or sums) in
+// registers for its whole range. A thread owns VEC neighbouring channels and
+// moves them as one access: 16 bytes (VEC = 8 in bf16, 4 in f32, 2 in f64)
+// where C is a multiple of VEC and every [M, C] pointer is 16-byte aligned,
+// else VEC = 1 (the wrapper picks, the entry point checks). C / VEC threads
+// share a row, so a block covers THREADS / (C / VEC) whole rows per pass (32
+// rows at C = 64 in bf16) and a warp reads one contiguous run of memory;
+// blockIdx.y picks a tile of THREADS groups only where a row has more (C >
+// 2048 in bf16). The row loop runs whole groups of U rows with no bounds
+// check, U accesses per input in flight, then the ragged tail one row at a
+// time: with a check on every access ptxas kept more values live and spilled.
 //
-// * stats and bwd_apply: blocks of 32 x 8 threads. threadIdx.x walks 32
-//   neighbouring channels of a row, threadIdx.y walks rows, blockIdx.y picks
-//   the 32-channel tile. One scalar access per element, 4 rows in flight.
-// * apply and bwd_reduce: blocks of THREADS threads in a line. A thread owns
-//   VEC neighbouring channels and moves them as one access: 16 bytes (VEC = 8
-//   in bf16, 4 in f32, 2 in f64) where C is a multiple of VEC and the base
-//   pointers are 16-byte aligned, else VEC = 1 (the wrapper picks, the entry
-//   point checks). C / VEC threads share a row, so a block covers
-//   THREADS / (C / VEC) whole rows per pass (32 rows at C = 64 in bf16) and a
-//   warp reads one contiguous run of memory; blockIdx.y picks a tile of
-//   THREADS groups only where a row has more (C > 2048 in bf16). Each thread
-//   keeps VUNROLL accesses per input in flight: 64 bytes at 16-byte width.
-//   The row loop runs whole groups of VUNROLL rows with no bounds check and
-//   then the ragged tail one row at a time: with a check on every access
-//   ptxas kept more values live and bwd_reduce spilled in bf16.
+// Two templates cover the four kernels, each with one or two [M, C] inputs:
+// reduce_rows (stats: x; bwd_reduce: dy, x) and affine_rows (apply: x;
+// bwd_apply: dy, x).
 //
 // Types: T is float, __nv_bfloat16 or double; every sum and coefficient is
 // in A = promote(T, float), i.e. float for float/bf16 and double for double.
 //
 // Bound: all four are memory-bound (a few flops per element against 2 to 8
 // bytes moved), so the least time is the bytes below over the card's memory
-// rate. With one scalar access per element a bf16 kernel keeps 2 bytes a
-// thread per row in flight, too few to cover HBM's latency; the 16-byte
-// layout is the answer for apply and bwd_reduce. The reductions (stats,
-// bwd_reduce) are two-stage and deterministic: each block writes fp32/fp64
-// per-channel partials to a [G, 2, C] workspace and a finalize kernel sums
-// the G partials in a fixed order. No atomics, so a step is bitwise
-// repeatable on one card.
+// rate; the 16-byte accesses and the bytes kept in flight are what approach
+// it. The reductions are two-stage and deterministic: each block writes
+// fp32/fp64 per-channel partials to a [G, 2, C] workspace and a finalize
+// kernel sums the G partials in a fixed order. No atomics, so a step is
+// bitwise repeatable on one card.
 //
 // Every entry point launches on the caller's stream and returns
 // cudaGetLastError() (or cudaErrorInvalidValue for a width it cannot take);
@@ -44,19 +39,20 @@
 #include <cuda_bf16.h>
 #include <cstdint>
 #include <initializer_list>
+#include <type_traits>
 
 namespace {
 
-constexpr int TX = 32;      // channels per block
-constexpr int TY = 8;       // row lanes per block
-constexpr int UNROLL = 4;   // rows in flight per thread
-constexpr int FY = 32;      // partial lanes per channel in the finalize kernel
-constexpr int THREADS = 256;   // threads per block of apply and bwd_reduce
-constexpr int VUNROLL = 4;     // accesses in flight per input and thread (apply, bwd_reduce)
+constexpr int TX = 32;         // channels per block of the finalize kernel
+constexpr int FY = 32;         // partial lanes per channel in the finalize kernel
+constexpr int THREADS = 256;   // threads per block of the four kernels
 // Resident blocks per SM that the wrapper's G counts on: 3 x 256 threads leave
-// 85 registers a thread. bwd_reduce<bf16, 8> takes 72 (VUNROLL 16-byte
-// accesses of two inputs and 16 fp32 sums), more than the 64 of 4 blocks.
+// 85 registers a thread. bwd_apply<bf16, 8> takes 80 (24 fp32 coefficients
+// and 4 16-byte accesses of two inputs), stats and bwd_reduce 72, more than
+// the 64 of 4 blocks.
 constexpr int MIN_BLOCKS = 3;
+constexpr int IN_FLIGHT = 8;   // 16-byte accesses in flight per thread in the reductions
+constexpr int VUNROLL = 4;     // accesses in flight per input and thread in apply, bwd_apply
 
 template <typename T> struct Acc { using type = float; };
 template <> struct Acc<double> { using type = double; };
@@ -125,65 +121,30 @@ __device__ __forceinline__ void row_range(int64_t m, int64_t& r0, int64_t& r1) {
   r1 = r0 + per < m ? r0 + per : m;
 }
 
-// Sums the TY row lanes of a block in a fixed order and writes the block's
-// two partials for channel c to ws[blockIdx.x, 0:2, c].
-template <typename A>
-__device__ __forceinline__ void write_partials(A s, A q, A* __restrict__ ws, int c, int C) {
-  __shared__ A sh[2][TY][TX];
-  sh[0][threadIdx.y][threadIdx.x] = s;
-  sh[1][threadIdx.y][threadIdx.x] = q;
-  __syncthreads();
-  if (threadIdx.y == 0 && c < C) {
-    A S = 0, Q = 0;
-    for (int k = 0; k < TY; ++k) {
-      S += sh[0][k][threadIdx.x];
-      Q += sh[1][k][threadIdx.x];
-    }
-    const int64_t base = static_cast<int64_t>(blockIdx.x) * 2 * C;
-    ws[base + c] = S;
-    ws[base + C + c] = Q;
+// s += a, q += a*b for the VEC channels of one access of each input.
+template <typename T, int VEC, typename A>
+__device__ __forceinline__ void accumulate(A (&s)[VEC], A (&q)[VEC], const Pack<T, VEC>& a,
+                                           const Pack<T, VEC>& b) {
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) {
+    const A ak = to_acc(a.v[k]);
+    s[k] += ak;
+    q[k] += ak * to_acc(b.v[k]);
   }
 }
 
-// Replaces pallas_bn.py:_stats_kernel (per-channel sum and sum of squares,
-// accumulated over the sequential Pallas grid). Bound: reads x once,
-// M*C*sizeof(T) bytes. Stage one of two: block partials of (sum x, sum x^2).
-template <typename T>
-__global__ void __launch_bounds__(TX * TY)
-stats_partial(const T* __restrict__ x, typename Acc<T>::type* __restrict__ ws, int64_t m, int C) {
+// Stage one of the reductions: per-channel (sum a, sum a*b) of this block's
+// rows, with b = a where NIN = 1. Each thread sums its VEC channels over its
+// rows in row order, then the block sums its row lanes in lane order through
+// shared memory and writes its partials to ws[blockIdx.x, 0:2, :] for the
+// channels of its tile. U = IN_FLIGHT / NIN accesses per input in flight:
+// 128 bytes a thread at 16-byte width, whether it reads one input or two.
+template <typename T, int VEC, int NIN>
+__device__ __forceinline__ void reduce_rows(const T* __restrict__ a, const T* __restrict__ b,
+                                            typename Acc<T>::type* __restrict__ ws, int64_t m,
+                                            int C) {
   using A = typename Acc<T>::type;
-  const int c = blockIdx.y * TX + threadIdx.x;
-  int64_t r0, r1;
-  row_range(m, r0, r1);
-  A s = 0, q = 0;
-  if (c < C) {
-    for (int64_t r = r0 + threadIdx.y; r < r1; r += TY * UNROLL) {
-      A v[UNROLL];
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int64_t rr = r + u * TY;
-        v[u] = rr < r1 ? to_acc(x[rr * C + c]) : A(0);
-      }
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        s += v[u];
-        q += v[u] * v[u];
-      }
-    }
-  }
-  write_partials<A>(s, q, ws, c, C);
-}
-
-// Replaces pallas_bn.py:_bwd_reduce_kernel (s1 = sum dy, s2 = sum dy*x).
-// Bound: reads dy and x once, 2*M*C*sizeof(T) bytes. Stage one of two: each
-// thread sums its VEC channels over its rows, then the block sums its row
-// lanes in lane order through shared memory and writes its partials to
-// ws[blockIdx.x, 0:2, :] for the channels of its tile.
-template <typename T, int VEC>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-bwd_reduce_partial(const T* __restrict__ dy, const T* __restrict__ x,
-                   typename Acc<T>::type* __restrict__ ws, int64_t m, int C) {
-  using A = typename Acc<T>::type;
+  constexpr int U = IN_FLIGHT / NIN;
   const Lanes l(C / VEC);
   int64_t r0, r1;
   row_range(m, r0, r1);
@@ -193,35 +154,23 @@ bwd_reduce_partial(const T* __restrict__ dy, const T* __restrict__ x,
   if (l.active) {
     const int64_t stride = static_cast<int64_t>(l.rows) * C;  // elements per pass
     int64_t r = r0 + l.lane;
-    const T* dp = dy + r * C + l.group * VEC;
-    const T* xp = x + r * C + l.group * VEC;
-    for (; r + (VUNROLL - 1) * l.rows < r1; r += l.rows * VUNROLL) {
-      Pack<T, VEC> g[VUNROLL], v[VUNROLL];
+    const T* ap = a + r * C + l.group * VEC;
+    const T* bp = b + r * C + l.group * VEC;
+    for (; r + (U - 1) * l.rows < r1; r += l.rows * U) {
+      Pack<T, VEC> g[U], v[U];
 #pragma unroll
-      for (int u = 0; u < VUNROLL; ++u) {
-        g[u] = load_pack<T, VEC>(dp + u * stride);
-        v[u] = load_pack<T, VEC>(xp + u * stride);
+      for (int u = 0; u < U; ++u) {
+        g[u] = load_pack<T, VEC>(ap + u * stride);
+        if constexpr (NIN == 2) v[u] = load_pack<T, VEC>(bp + u * stride);
       }
-      dp += VUNROLL * stride;
-      xp += VUNROLL * stride;
+      ap += U * stride;
+      bp += U * stride;
 #pragma unroll
-      for (int u = 0; u < VUNROLL; ++u) {
-#pragma unroll
-        for (int k = 0; k < VEC; ++k) {
-          const A gk = to_acc(g[u].v[k]);
-          s[k] += gk;
-          q[k] += gk * to_acc(v[u].v[k]);
-        }
-      }
+      for (int u = 0; u < U; ++u) accumulate<T, VEC, A>(s, q, g[u], NIN == 2 ? v[u] : g[u]);
     }
-    for (; r < r1; r += l.rows, dp += stride, xp += stride) {
-      const Pack<T, VEC> g = load_pack<T, VEC>(dp), v = load_pack<T, VEC>(xp);
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) {
-        const A gk = to_acc(g.v[k]);
-        s[k] += gk;
-        q[k] += gk * to_acc(v.v[k]);
-      }
+    for (; r < r1; r += l.rows, ap += stride, bp += stride) {
+      const Pack<T, VEC> g = load_pack<T, VEC>(ap);
+      accumulate<T, VEC, A>(s, q, g, NIN == 2 ? load_pack<T, VEC>(bp) : g);
     }
   }
   __shared__ A sh[2][THREADS * VEC];  // [sum][row lane * width + channel in tile]
@@ -246,6 +195,24 @@ bwd_reduce_partial(const T* __restrict__ dy, const T* __restrict__ x,
     ws[base + c0 + j] = S;
     ws[base + C + c0 + j] = Q;
   }
+}
+
+// Replaces pallas_bn.py:_stats_kernel (per-channel sum and sum of squares,
+// accumulated over the sequential Pallas grid). Bound: reads x once,
+// M*C*sizeof(T) bytes. Stage one of two.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+stats_partial(const T* __restrict__ x, typename Acc<T>::type* __restrict__ ws, int64_t m, int C) {
+  reduce_rows<T, VEC, 1>(x, x, ws, m, C);
+}
+
+// Replaces pallas_bn.py:_bwd_reduce_kernel (s1 = sum dy, s2 = sum dy*x).
+// Bound: reads dy and x once, 2*M*C*sizeof(T) bytes. Stage one of two.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+bwd_reduce_partial(const T* __restrict__ dy, const T* __restrict__ x,
+                   typename Acc<T>::type* __restrict__ ws, int64_t m, int C) {
+  reduce_rows<T, VEC, 2>(dy, x, ws, m, C);
 }
 
 // Stage two of stats and bwd_reduce: out[k, c] = sum over g of ws[g, k, c],
@@ -279,105 +246,78 @@ finalize_partials(const A* __restrict__ ws, A* __restrict__ out, int G, int C) {
   }
 }
 
-// Replaces pallas_bn.py:_apply_kernel: y = a*x + b with per-channel a = ab[0],
-// b = ab[1]. Bound: reads x and writes y once, 2*M*C*sizeof(T) bytes.
-template <typename T, int VEC>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-apply_kernel(const T* __restrict__ x, const typename Acc<T>::type* __restrict__ ab,
-             T* __restrict__ y, int64_t m, int C) {
+// out = k0*a + k1 (NIN = 1) or k0*a + k1 + k2*b (NIN = 2), per channel, with
+// k = coef[0:NIN+1, :] held in registers: VUNROLL accesses per input in
+// flight, each rewritten in place and stored.
+template <typename T, int VEC, int NIN>
+__device__ __forceinline__ void affine_rows(const T* __restrict__ a, const T* __restrict__ b,
+                                            const typename Acc<T>::type* __restrict__ coef,
+                                            T* __restrict__ out, int64_t m, int C) {
   using A = typename Acc<T>::type;
   const Lanes l(C / VEC);
   if (!l.active) return;
   int64_t r0, r1;
   row_range(m, r0, r1);
   const int c = l.group * VEC;
-  A a[VEC], b[VEC];
+  A k[NIN + 1][VEC];
 #pragma unroll
-  for (int k = 0; k < VEC; ++k) {
-    a[k] = ab[c + k];
-    b[k] = ab[C + c + k];
-  }
+  for (int j = 0; j <= NIN; ++j)
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) k[j][i] = coef[j * C + c + i];
+  auto map = [&](Pack<T, VEC>& g, const Pack<T, VEC>& v) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      A y = k[0][i] * to_acc(g.v[i]) + k[1][i];
+      if constexpr (NIN == 2) y += k[2][i] * to_acc(v.v[i]);
+      g.v[i] = from_acc<T, A>(y);
+    }
+  };
   const int64_t stride = static_cast<int64_t>(l.rows) * C;  // elements per pass
   int64_t r = r0 + l.lane;
-  const T* xp = x + r * C + c;
-  T* yp = y + r * C + c;
+  const T* ap = a + r * C + c;
+  const T* bp = b + r * C + c;
+  T* op = out + r * C + c;
   for (; r + (VUNROLL - 1) * l.rows < r1; r += l.rows * VUNROLL) {
-    Pack<T, VEC> v[VUNROLL];
-#pragma unroll
-    for (int u = 0; u < VUNROLL; ++u) v[u] = load_pack<T, VEC>(xp + u * stride);
+    Pack<T, VEC> g[VUNROLL], v[VUNROLL];
 #pragma unroll
     for (int u = 0; u < VUNROLL; ++u) {
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) v[u].v[k] = from_acc<T, A>(a[k] * to_acc(v[u].v[k]) + b[k]);
-      store_pack<T, VEC>(yp + u * stride, v[u]);
+      g[u] = load_pack<T, VEC>(ap + u * stride);
+      if constexpr (NIN == 2) v[u] = load_pack<T, VEC>(bp + u * stride);
     }
-    xp += VUNROLL * stride;
-    yp += VUNROLL * stride;
-  }
-  for (; r < r1; r += l.rows, xp += stride, yp += stride) {
-    Pack<T, VEC> v = load_pack<T, VEC>(xp);
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) v.v[k] = from_acc<T, A>(a[k] * to_acc(v.v[k]) + b[k]);
-    store_pack<T, VEC>(yp, v);
+    for (int u = 0; u < VUNROLL; ++u) {
+      map(g[u], v[u]);
+      store_pack<T, VEC>(op + u * stride, g[u]);
+    }
+    ap += VUNROLL * stride;
+    bp += VUNROLL * stride;
+    op += VUNROLL * stride;
   }
+  for (; r < r1; r += l.rows, ap += stride, bp += stride, op += stride) {
+    Pack<T, VEC> g = load_pack<T, VEC>(ap);
+    map(g, NIN == 2 ? load_pack<T, VEC>(bp) : g);
+    store_pack<T, VEC>(op, g);
+  }
+}
+
+// Replaces pallas_bn.py:_apply_kernel: y = a*x + b with per-channel a = ab[0],
+// b = ab[1]. Bound: reads x and writes y once, 2*M*C*sizeof(T) bytes.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+apply_kernel(const T* __restrict__ x, const typename Acc<T>::type* __restrict__ ab,
+             T* __restrict__ y, int64_t m, int C) {
+  affine_rows<T, VEC, 1>(x, x, ab, y, m, C);
 }
 
 // Replaces pallas_bn.py:_bwd_apply_kernel: dx = a*dy + c1 + c2*x with
 // per-channel coef = [a, c1, c2]. Bound: reads dy and x and writes dx once,
 // 3*M*C*sizeof(T) bytes.
-template <typename T>
-__global__ void __launch_bounds__(TX * TY)
+template <typename T, int VEC>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 bwd_apply_kernel(const T* __restrict__ dy, const T* __restrict__ x,
                  const typename Acc<T>::type* __restrict__ coef, T* __restrict__ dx,
                  int64_t m, int C) {
-  using A = typename Acc<T>::type;
-  const int c = blockIdx.y * TX + threadIdx.x;
-  if (c >= C) return;
-  int64_t r0, r1;
-  row_range(m, r0, r1);
-  const A a = coef[c];
-  const A c1 = coef[C + c];
-  const A c2 = coef[2 * C + c];
-  for (int64_t r = r0 + threadIdx.y; r < r1; r += TY * UNROLL) {
-    A g[UNROLL], v[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int64_t rr = r + u * TY;
-      const bool in = rr < r1;
-      g[u] = in ? to_acc(dy[rr * C + c]) : A(0);
-      v[u] = in ? to_acc(x[rr * C + c]) : A(0);
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int64_t rr = r + u * TY;
-      if (rr < r1) dx[rr * C + c] = from_acc<T, A>(a * g[u] + c1 + c2 * v[u]);
-    }
-  }
-}
-
-inline dim3 row_grid(int G, int C) { return dim3(G, (C + TX - 1) / TX); }
-
-template <typename T>
-int run_stats(const void* x, void* ws, void* out, int64_t m, int C, int G, void* stream) {
-  using A = typename Acc<T>::type;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  stats_partial<T><<<row_grid(G, C), dim3(TX, TY), 0, s>>>(
-      static_cast<const T*>(x), static_cast<A*>(ws), m, C);
-  finalize_partials<A><<<(C + TX - 1) / TX, dim3(TX, FY), 0, s>>>(
-      static_cast<const A*>(ws), static_cast<A*>(out), G, C);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The width an entry point launches for `vec`: wide (16 bytes a thread) when
-// asked and C and every pointer allow it, 1 when asked; 0 for anything else.
-template <typename T>
-int checked_width(int vec, int C, std::initializer_list<const void*> ptrs) {
-  constexpr int WIDE = 16 / sizeof(T);
-  if (vec == 1) return 1;
-  if (vec != WIDE || C % WIDE != 0) return 0;
-  for (const void* p : ptrs)
-    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return 0;
-  return WIDE;
+  affine_rows<T, VEC, 2>(dy, x, coef, dx, m, C);
 }
 
 inline dim3 vec_grid(int G, int C, int vec) {
@@ -385,76 +325,103 @@ inline dim3 vec_grid(int G, int C, int vec) {
   return dim3(G, (groups + THREADS - 1) / THREADS);
 }
 
+// Calls launch(std::integral_constant<int, width>) for the width an entry
+// point launches for `vec`: wide (16 bytes a thread) when asked and C and
+// every pointer allow it, 1 when asked. Any other width is refused with
+// cudaErrorInvalidValue before anything launches: a 16-byte access at an
+// address that is not 16-byte aligned faults the context.
+template <typename T, typename Launch>
+int at_width(int vec, int C, std::initializer_list<const void*> ptrs, Launch launch) {
+  constexpr int WIDE = 16 / sizeof(T);
+  if (vec != 1) {
+    bool ok = vec == WIDE && C % WIDE == 0;
+    for (const void* p : ptrs) ok = ok && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (vec == WIDE)
+    launch(std::integral_constant<int, WIDE>{});
+  else
+    launch(std::integral_constant<int, 1>{});
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename A>
+void finalize(const void* ws, void* out, int G, int C, cudaStream_t s) {
+  finalize_partials<A><<<(C + TX - 1) / TX, dim3(TX, FY), 0, s>>>(
+      static_cast<const A*>(ws), static_cast<A*>(out), G, C);
+}
+
+template <typename T>
+int run_stats(const void* x, void* ws, void* out, int64_t m, int C, int G, int vec,
+              cudaStream_t s) {
+  using A = typename Acc<T>::type;
+  return at_width<T>(vec, C, {x}, [&](auto w) {
+    constexpr int V = decltype(w)::value;
+    stats_partial<T, V><<<vec_grid(G, C, V), THREADS, 0, s>>>(
+        static_cast<const T*>(x), static_cast<A*>(ws), m, C);
+    finalize<A>(ws, out, G, C, s);
+  });
+}
+
 template <typename T>
 int run_bwd_reduce(const void* dy, const void* x, void* ws, void* out, int64_t m, int C, int G,
-                   int vec, void* stream) {
+                   int vec, cudaStream_t s) {
   using A = typename Acc<T>::type;
-  constexpr int WIDE = 16 / sizeof(T);
-  const int width = checked_width<T>(vec, C, {dy, x});
-  if (width == 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const T* d = static_cast<const T*>(dy);
-  const T* v = static_cast<const T*>(x);
-  A* w = static_cast<A*>(ws);
-  if (width == WIDE)
-    bwd_reduce_partial<T, WIDE><<<vec_grid(G, C, WIDE), THREADS, 0, s>>>(d, v, w, m, C);
-  else
-    bwd_reduce_partial<T, 1><<<vec_grid(G, C, 1), THREADS, 0, s>>>(d, v, w, m, C);
-  finalize_partials<A><<<(C + TX - 1) / TX, dim3(TX, FY), 0, s>>>(w, static_cast<A*>(out), G, C);
-  return static_cast<int>(cudaGetLastError());
+  return at_width<T>(vec, C, {dy, x}, [&](auto w) {
+    constexpr int V = decltype(w)::value;
+    bwd_reduce_partial<T, V><<<vec_grid(G, C, V), THREADS, 0, s>>>(
+        static_cast<const T*>(dy), static_cast<const T*>(x), static_cast<A*>(ws), m, C);
+    finalize<A>(ws, out, G, C, s);
+  });
 }
 
 template <typename T>
 int run_apply(const void* x, const void* ab, void* y, int64_t m, int C, int G, int vec,
-              void* stream) {
+              cudaStream_t s) {
   using A = typename Acc<T>::type;
-  constexpr int WIDE = 16 / sizeof(T);
-  const int width = checked_width<T>(vec, C, {x, y});
-  if (width == 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const T* v = static_cast<const T*>(x);
-  const A* k = static_cast<const A*>(ab);
-  T* o = static_cast<T*>(y);
-  if (width == WIDE)
-    apply_kernel<T, WIDE><<<vec_grid(G, C, WIDE), THREADS, 0, s>>>(v, k, o, m, C);
-  else
-    apply_kernel<T, 1><<<vec_grid(G, C, 1), THREADS, 0, s>>>(v, k, o, m, C);
-  return static_cast<int>(cudaGetLastError());
+  return at_width<T>(vec, C, {x, y}, [&](auto w) {
+    constexpr int V = decltype(w)::value;
+    apply_kernel<T, V><<<vec_grid(G, C, V), THREADS, 0, s>>>(
+        static_cast<const T*>(x), static_cast<const A*>(ab), static_cast<T*>(y), m, C);
+  });
 }
 
 template <typename T>
 int run_bwd_apply(const void* dy, const void* x, const void* coef, void* dx, int64_t m, int C,
-                  int G, void* stream) {
+                  int G, int vec, cudaStream_t s) {
   using A = typename Acc<T>::type;
-  bwd_apply_kernel<T><<<row_grid(G, C), dim3(TX, TY), 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(dy), static_cast<const T*>(x), static_cast<const A*>(coef),
-      static_cast<T*>(dx), m, C);
-  return static_cast<int>(cudaGetLastError());
+  return at_width<T>(vec, C, {dy, x, dx}, [&](auto w) {
+    constexpr int V = decltype(w)::value;
+    bwd_apply_kernel<T, V><<<vec_grid(G, C, V), THREADS, 0, s>>>(
+        static_cast<const T*>(dy), static_cast<const T*>(x), static_cast<const A*>(coef),
+        static_cast<T*>(dx), m, C);
+  });
 }
 
 }  // namespace
 
 // Plain C entry points, one per kernel and input type (f32, bf16, f64), bound
-// with ctypes by ops/bn.py. G is the number of row ranges (blockIdx.x); vec,
-// for apply and bwd_reduce, the channels a thread moves in one access: 1, or
-// 16 / sizeof(T) where C and the pointers allow it.
-#define FBT_BN_ENTRY_POINTS(SUFFIX, T)                                                        \
-  extern "C" int fbt_bn_stats_##SUFFIX(const void* x, void* ws, void* out, int64_t m, int C,  \
-                                       int G, void* stream) {                                 \
-    return run_stats<T>(x, ws, out, m, C, G, stream);                                         \
-  }                                                                                           \
-  extern "C" int fbt_bn_apply_##SUFFIX(const void* x, const void* ab, void* y, int64_t m,     \
-                                       int C, int G, int vec, void* stream) {                 \
-    return run_apply<T>(x, ab, y, m, C, G, vec, stream);                                      \
-  }                                                                                           \
-  extern "C" int fbt_bn_bwd_reduce_##SUFFIX(const void* dy, const void* x, void* ws,          \
-                                            void* out, int64_t m, int C, int G, int vec,      \
-                                            void* stream) {                                   \
-    return run_bwd_reduce<T>(dy, x, ws, out, m, C, G, vec, stream);                           \
-  }                                                                                           \
-  extern "C" int fbt_bn_bwd_apply_##SUFFIX(const void* dy, const void* x, const void* coef,   \
-                                           void* dx, int64_t m, int C, int G, void* stream) { \
-    return run_bwd_apply<T>(dy, x, coef, dx, m, C, G, stream);                                \
+// with ctypes by ops/bn.py. G is the number of row ranges (blockIdx.x); vec
+// the channels a thread moves in one access: 1, or 16 / sizeof(T) where C and
+// the [M, C] pointers allow it.
+#define FBT_BN_ENTRY_POINTS(SUFFIX, T)                                                         \
+  extern "C" int fbt_bn_stats_##SUFFIX(const void* x, void* ws, void* out, int64_t m, int C,   \
+                                       int G, int vec, void* stream) {                         \
+    return run_stats<T>(x, ws, out, m, C, G, vec, static_cast<cudaStream_t>(stream));          \
+  }                                                                                            \
+  extern "C" int fbt_bn_apply_##SUFFIX(const void* x, const void* ab, void* y, int64_t m,      \
+                                       int C, int G, int vec, void* stream) {                  \
+    return run_apply<T>(x, ab, y, m, C, G, vec, static_cast<cudaStream_t>(stream));            \
+  }                                                                                            \
+  extern "C" int fbt_bn_bwd_reduce_##SUFFIX(const void* dy, const void* x, void* ws,           \
+                                            void* out, int64_t m, int C, int G, int vec,       \
+                                            void* stream) {                                    \
+    return run_bwd_reduce<T>(dy, x, ws, out, m, C, G, vec, static_cast<cudaStream_t>(stream)); \
+  }                                                                                            \
+  extern "C" int fbt_bn_bwd_apply_##SUFFIX(const void* dy, const void* x, const void* coef,    \
+                                           void* dx, int64_t m, int C, int G, int vec,         \
+                                           void* stream) {                                     \
+    return run_bwd_apply<T>(dy, x, coef, dx, m, C, G, vec, static_cast<cudaStream_t>(stream)); \
   }
 
 FBT_BN_ENTRY_POINTS(f32, float)

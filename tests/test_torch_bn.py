@@ -188,7 +188,7 @@ def test_batchnorm2d_matches_flax(train):
 
 
 # --------------------------------------------------------------------------
-# the launch plan of the 16-byte kernels (apply, bwd_reduce): a pure function
+# the launch plan of the four kernels: a pure function
 # --------------------------------------------------------------------------
 
 H100_SMS = 132
@@ -251,9 +251,33 @@ def test_launch_plan_row_blocks_depend_on_sms_m_and_c_alone(sms):
     assert bn.launch_plan(sms, 2048 * 1024, 64, torch.bfloat16, ALIGNED)[0] == 3 * sms
 
 
+# [M, C] operands of each kernel's C entry point, output included
+OPERANDS = {"stats": 1, "apply": 2, "bwd_reduce": 2, "bwd_apply": 3}
+
+
+@pytest.mark.parametrize("dtype", KERNEL_DTYPES, ids=str)
+@pytest.mark.parametrize("name", list(OPERANDS))
+def test_launch_plan_for_each_kernels_operands(name, dtype):
+    """All operands aligned take 16 bytes; any one of them off alignment, by
+    an element or by 8 bytes, takes one element a thread."""
+    m, c = 2048 * 16, 512
+    size = m * c * dtype.itemsize
+    aligned = [ALIGNED + k * size for k in range(OPERANDS[name])]
+    assert bn.launch_plan(H100_SMS, m, c, dtype, *aligned)[1] * dtype.itemsize == 16
+    for k in range(OPERANDS[name]):
+        for off in {dtype.itemsize, 8}:
+            addresses = list(aligned)
+            addresses[k] += off
+            assert bn.launch_plan(H100_SMS, m, c, dtype, *addresses)[1] == 1, (k, off)
+
+
 def test_cpu_tensors_launch_nothing():
     before = (dict(bn.launches), dict(bn.vector_launches))
-    x = torch.randn(64, 16)
-    bn.apply(x, torch.randn(2, 16))
-    bn.bwd_reduce(x, x)
+    x, dy = torch.randn(64, 16), torch.randn(64, 16)
+    ab, coef = torch.randn(2, 16), torch.randn(3, 16)
+    torch.testing.assert_close(bn.stats(x), bn.stats_plain(x))
+    torch.testing.assert_close(bn.apply(x, ab), bn.apply_plain(x, ab))
+    torch.testing.assert_close(bn.bwd_reduce(dy, x), bn.bwd_reduce_plain(dy, x))
+    torch.testing.assert_close(bn.bwd_apply(dy, x, coef), bn.bwd_apply_plain(dy, x, coef))
     assert (bn.launches, bn.vector_launches) == before
+    assert set(bn.vector_launches) == set(bn.launches)

@@ -4,12 +4,12 @@ Marked ``gpu``: they skip where CUDA is absent. Run them on a card with
 
     python -m pytest -m gpu tests/test_torch_kernels_gpu.py
 
-Shapes are ResNet-18's BN inputs at a small batch (stage 1 and 4) plus a
-ragged row count and a channel count that is not a multiple of the 32-channel
-tile. ``apply`` and ``bwd_reduce`` also run at the edges of their two widths
-(16 bytes a thread, or one element): a channel count below, across and above
-one 256-thread block's row, one that no 16-byte group divides, one row, a
-ragged row count, and an operand 1 element off 16-byte alignment. Tolerances,
+Shapes are ResNet-18's BN inputs at a small batch (stage 1 and 4) plus two
+with ragged row counts and channel counts of 96 and 40. Every kernel also runs at the edges of its two widths (16 bytes a
+thread, or one element): a channel count below, across and above one
+256-thread block's row, one that no 16-byte group divides, one row, a ragged
+row count, and an operand 1 element off 16-byte alignment; the reductions
+must be bitwise repeatable at each. Tolerances,
 relative to the size of the terms summed: float32 sums 1e-5 and
 bfloat16-input sums 1e-5 (float32 accumulation in another order), float64
 1e-12; elementwise outputs 2 ulp of the output dtype (an FMA may round once
@@ -149,35 +149,32 @@ EDGES = pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "offse
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("m", EDGE_M)
 @pytest.mark.parametrize("c", EDGE_C)
-def test_apply_widths_and_edges(cuda, c, m, dtype, aligned):
-    x = _operand(m, c, dtype, cuda, 10, aligned)
-    assert (x.data_ptr() % 16 == 0) == aligned
-    ab = _coef(2, c, dtype, cuda, 11)
-    before = _counts("apply")
-    y = bn.apply(x, ab)
-    torch.cuda.synchronize()
-    wide = _expected_vec(c, dtype, aligned) > 1
-    assert _counts("apply") == (before[0] + 1, before[1] + wide)
-    with bn.plain_versions():
-        y_ref = bn.apply(x, ab)
-    assert y.dtype == dtype and y.shape == (m, c)
-    _assert_elementwise_close(y, y_ref, (x.to(ab.dtype) * ab[0]).abs() + ab[1].abs(), dtype)
-
-
-@EDGES
-@pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("m", EDGE_M)
-@pytest.mark.parametrize("c", EDGE_C)
-def test_bwd_reduce_widths_and_edges(cuda, c, m, dtype, aligned):
-    dy = _operand(m, c, dtype, cuda, 12, True)
+@pytest.mark.parametrize("name", ["stats", "apply", "bwd_reduce", "bwd_apply"])
+def test_widths_and_edges(cuda, name, c, m, dtype, aligned):
+    """Each kernel at both widths: ``x`` is aligned or one element off (for
+    ``bwd_apply`` it stands for an offset ``dx``, which the wrapper never
+    allocates); ``dy`` is aligned."""
     x = _operand(m, c, dtype, cuda, 13, aligned)
-    before = _counts("bwd_reduce")
-    r = bn.bwd_reduce(dy, x)
+    assert (x.data_ptr() % 16 == 0) == aligned
+    inputs = (x,) if name in ("stats", "apply") else (_operand(m, c, dtype, cuda, 12, True), x)
+    rows = {"apply": 2, "bwd_apply": 3}.get(name)
+    coef = (_coef(rows, c, dtype, cuda, 11),) if rows else ()
+    fn = getattr(bn, name)
+    before = _counts(name)
+    out = fn(*inputs, *coef)
     torch.cuda.synchronize()
     wide = _expected_vec(c, dtype, aligned) > 1
-    assert _counts("bwd_reduce") == (before[0] + 1, before[1] + wide)
+    assert _counts(name) == (before[0] + 1, before[1] + wide)
     with bn.plain_versions():
-        r_ref = bn.bwd_reduce(dy, x)
-        r_abs = bn.bwd_reduce(dy.abs(), x.abs())
-    _assert_sums_close(r, r_ref, r_abs, dtype)
-    assert torch.equal(r, bn.bwd_reduce(dy, x)), "bwd_reduce is not bitwise repeatable"
+        ref = fn(*inputs, *coef)
+        if not coef:
+            scale = fn(*(t.abs() for t in inputs))
+    if not coef:
+        _assert_sums_close(out, ref, scale, dtype)
+        assert torch.equal(out, fn(*inputs)), f"{name} is not bitwise repeatable"
+        return
+    (k,) = coef
+    assert out.dtype == dtype and out.shape == (m, c)
+    # |k0*in0| + |k1| (+ |k2*in1|): apply a*x + b, bwd_apply a*dy + c1 + c2*x
+    magnitude = k[1].abs() + sum((t.to(k.dtype) * k[j]).abs() for t, j in zip(inputs, (0, 2)))
+    _assert_elementwise_close(out, ref, magnitude, dtype)
