@@ -33,11 +33,23 @@ Phases, in order; any failure exits non-zero before the result lines:
    device time by kernel class, and the device's busy share: that step's
    device time over the wall time of the next step, run without the
    profiler (the profiler's own host work stretches the traced step).
+6. Phase 3 for ``hyp=gradreg`` (the gradient regularizer), with its
+   ``forward-differences`` and ``autograd`` variants: kernels against plain
+   versions, and the launch counts of each (twice phase 3's for the forward
+   difference; double backwards for ``autograd``). Then BNTrain's double
+   backward on the kernel route against ``bn_train_reference``'s at the BN
+   shapes of phase 2, in float32.
+7. ``hyp=gradreg`` at full width through ``training.train`` (3 bf16 steps,
+   forward differences): exactly twice phase 4's launches of ``stats``,
+   ``bwd_reduce`` and ``bwd_apply``, all at 16 bytes a thread; its profile as
+   in phase 5; one ``autograd`` step through ``training.train`` and its
+   profile; and ``||reg_fn(g) - g|| / ||g||`` of one chunk under bf16 and in
+   float32, beside the exact float32 value.
 
 The last lines are the card line, a JSON object of per-kernel numbers (their
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` sum the 20 BN layers of
-one bf16 chunk of 2048 images; ``launches`` counts phase 4), and
-``{"ok": true, "device": {...}}``.
+one bf16 chunk of 2048 images; ``launches`` counts phase 4 and
+``launches_gradreg`` phase 7), and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -311,20 +323,20 @@ def phase_bn_train(torch, bn, F, x, dy, dtype_name, hw, c):
 # phases 3 and 4: the main path
 # ---------------------------------------------------------------------------
 
-def main_path_config(extra):
+def main_path_config(extra, hyp="fb1"):
     from fullbatchtraining_tpu_torch.config import load_config
 
     return load_config(ROOT / "config", overrides=[
-        "model=resnet18", "data=CIFAR10", "hyp=fb1", "seed=0",
-        f"data.path={ROOT / 'build' / 'no_cifar_here'}", "name=chip_smoke"] + extra)
+        "model=resnet18", "data=CIFAR10", f"hyp={hyp}", "seed=0",
+        f"data.path={ROOT / 'build' / 'no_cifar_here'}", "name=chip_smoke"] + list(extra))
 
 
-def run_main_path(torch, extra):
+def run_main_path(torch, extra, hyp="fb1"):
     from fullbatchtraining_tpu_torch.data import construct_databundle
     from fullbatchtraining_tpu_torch.models import construct_model
     from fullbatchtraining_tpu_torch.training import train
 
-    cfg = main_path_config(extra)
+    cfg = main_path_config(extra, hyp)
     bundle = construct_databundle(cfg.data, cfg.impl, cfg.hyp, dryrun=cfg.dryrun, seed=cfg.seed)
     model = construct_model(cfg.model, bundle.channels, bundle.classes, seed=cfg.seed)
     initial = copy.deepcopy(model.state_dict())
@@ -340,22 +352,33 @@ FULL_WIDTH = ["hyp.warmup=0", "hyp.steps=3", "data.size=50_000", "data.batch_siz
               "hyp.sub_batch=2048", "impl.mixed_precision=True"]
 
 
-def phase_fp32_step(torch, bn):
+STEP_TOLS = {"fb1": (("train_loss", 1e-5), ("grad_norm", 1e-4), ("full_loss", 1e-5),
+                     ("valid_loss", 1e-4)),
+             # full_loss adds lr/4 * block_strength * the mean squared chunk
+             # norm, which carries grad_norm's error
+             "gradreg": (("train_loss", 1e-5), ("grad_norm", 1e-4), ("full_loss", 1e-4),
+                         ("valid_loss", 1e-4))}
+
+
+def kernels_against_plain_step(torch, bn, hyp="fb1", extra=()):
+    """One float32 step (``FP32_STEP``) on the kernels and under
+    ``plain_versions()``: the stats of ``STEP_TOLS[hyp]``, the updated
+    params (within 1e-3 of the update, times the amplification of a finite
+    difference where the regularizer takes one) and the running stats
+    (1e-4) must agree.
+    Returns the kernel run's launch counts, its double backwards and the
+    chunks of the step."""
     from fullbatchtraining_tpu_torch.data import epoch_layout
 
     bn.reset_counts()
-    cfg, bundle, initial, kstate, kstats = run_main_path(torch, FP32_STEP)
-    counts = dict(bn.launches)
+    cfg, bundle, initial, kstate, kstats = run_main_path(torch, FP32_STEP + list(extra), hyp)
+    counts, doubles = dict(bn.launches), bn.double_backward_calls
     with bn.plain_versions():
-        _, _, _, pstate, pstats = run_main_path(torch, FP32_STEP)
+        _, _, _, pstate, pstats = run_main_path(torch, FP32_STEP + list(extra), hyp)
     check(bn.launches == counts, "plain_versions() still launched kernels")
     blocks, chunks, _ = epoch_layout(bundle.size, bundle.batch_size, cfg.hyp.sub_batch)
-    chunks *= blocks
-    check(all(counts[k] == BN_LAYERS * chunks for k in ("stats", "bwd_reduce", "bwd_apply")),
-          f"fp32 step launches {counts}, expected {BN_LAYERS * chunks} per kernel")
-    log(f"  launches (kernel run): {counts}")
-    for key, tol in (("train_loss", 1e-5), ("grad_norm", 1e-4), ("full_loss", 1e-5),
-                     ("valid_loss", 1e-4)):
+    log(f"  launches (kernel run): {counts}; double backwards {doubles}")
+    for key, tol in STEP_TOLS[hyp]:
         a, b = kstats[key][-1], pstats[key][-1]
         log(f"  {key}: kernels {a!r} plain {b!r} rel diff {abs(a - b) / abs(b):.2e} (tol {tol:g})")
         check(abs(a - b) <= tol * abs(b), f"{key} differs between kernels and plain versions")
@@ -368,25 +391,45 @@ def phase_fp32_step(torch, bn):
         else:
             step = (p - p0.double()).norm().clamp_min(1e-30)
             worst_param = max(worst_param, ((k - p).norm() / step).item())
+    param_tol = 1e-3
+    reg = cfg.hyp.grad_reg
+    if float(reg.block_strength) and reg.implementation.endswith("differences"):
+        # a difference quotient divides the kernel-vs-plain differences of two
+        # gradients by eps_n = eps / ||v||, ||v|| = block_strength * ||g||: the
+        # regularized gradient carries them 2 * (lr/4) * ||v|| / eps times
+        param_tol *= 1 + (2 * kstats["lr"][0] / 4 * float(reg.block_strength)
+                          * kstats["grad_norm"][0] / float(reg.eps))
     log(f"  params: max over tensors of |kernels - plain| / |update| = {worst_param:.2e} "
-        f"(tol 1e-3); running stats: max relative L2 diff = {worst_stat:.2e} (tol 1e-4)")
-    check(worst_param <= 1e-3, "updated params differ between kernels and plain versions")
+        f"(tol {param_tol:.2e}); running stats: max relative L2 diff = {worst_stat:.2e} "
+        f"(tol 1e-4)")
+    check(worst_param <= param_tol, "updated params differ between kernels and plain versions")
     check(worst_stat <= 1e-4, "running stats differ between kernels and plain versions")
+    return counts, doubles, blocks * chunks
 
 
-def phase_full_width(torch, bn):
+def phase_fp32_step(torch, bn):
+    counts, _, chunks = kernels_against_plain_step(torch, bn)
+    check(all(counts[k] == BN_LAYERS * chunks for k in ("stats", "bwd_reduce", "bwd_apply")),
+          f"fp32 step launches {counts}, expected {BN_LAYERS * chunks} per kernel")
+
+
+def phase_full_width(torch, bn, hyp="fb1", passes=1):
+    """``FULL_WIDTH`` through ``training.train``. ``passes``: forward and
+    backward passes per chunk (2 for ``hyp=gradreg``'s forward difference),
+    so ``stats``, ``bwd_reduce`` and ``bwd_apply`` launch ``passes`` times a
+    BN layer a chunk."""
     from fullbatchtraining_tpu_torch.data import epoch_layout
 
     bn.reset_counts()
     t0 = time.time()
-    cfg, bundle, _, _, stats = run_main_path(torch, FULL_WIDTH)
+    cfg, bundle, _, _, stats = run_main_path(torch, FULL_WIDTH, hyp)
     wall = time.time() - t0
     counts, wide, copies = dict(bn.launches), dict(bn.vector_launches), bn.layout_copies
     blocks, chunks, sub = epoch_layout(bundle.size, bundle.batch_size, cfg.hyp.sub_batch)
     images = blocks * chunks * sub
     evals = len(stats["valid_loss"])
     eval_blocks = -(-len(bundle.valid) // bundle.batch_size)
-    per_step = BN_LAYERS * blocks * chunks
+    per_step = passes * BN_LAYERS * blocks * chunks
     steps = len(stats["train_loss"])
     result = {
         "step_s": stats["train_time"], "images_per_step": images,
@@ -422,11 +465,12 @@ BN_KERNEL_NAMES = ("stats_partial", "bwd_reduce_partial", "finalize_partials", "
 CONV_NAMES = ("conv", "gemm", "sm90", "cutlass", "xmma", "cudnn", "implicit", "winograd")
 
 
-def phase_profile(torch):
+def phase_profile(torch, hyp="fb1", extra=()):
     """One full-width step under torch.profiler, after a warm-up step outside
     it: device time by kernel class, and the device's busy share (that
     step's kernel time over the wall time of the next step, run without the
-    profiler; one stream, so kernels do not overlap)."""
+    profiler; one stream, so kernels do not overlap); peak memory over the
+    three steps."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -434,13 +478,14 @@ def phase_profile(torch):
     from fullbatchtraining_tpu_torch.models import construct_model
     from fullbatchtraining_tpu_torch.training import training
 
-    cfg = main_path_config(FULL_WIDTH)
+    cfg = main_path_config(FULL_WIDTH + list(extra), hyp)
     bundle = construct_databundle(cfg.data, cfg.impl, cfg.hyp, dryrun=cfg.dryrun, seed=cfg.seed)
     model = construct_model(cfg.model, bundle.channels, bundle.classes, seed=cfg.seed)
     training.configure_backends(cfg)
     trainer = training.Trainer(model, bundle, cfg, torch.device(DEVICE))
     state = training.TrainState(step=0, model=model,
                                 optimizer=training.make_optimizer(model, cfg.hyp))
+    torch.cuda.reset_peak_memory_stats()
     trainer.full_step(state)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -469,13 +514,175 @@ def phase_profile(torch):
             classes["other"] += t
     result = {"wall_ms": wall_ms, "traced_wall_ms": traced_ms, "device_ms": total,
               "busy_share": total / wall_ms, "by_class_ms": classes,
+              "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
               "top": sorted(kernels, key=lambda k: -k[1])[:12]}
     log(f"  device {total:.1f} ms in the traced step (wall {traced_ms:.1f} ms under the "
         f"profiler); untraced step wall {wall_ms:.1f} ms; busy share {total / wall_ms:.3f}; "
+        f"peak memory {result['peak_memory_gib']:.2f} GiB; "
         + ", ".join(f"{k} {v:.1f} ms" for k, v in classes.items()))
     for name, t, n in result["top"]:
         log(f"    {t:9.2f} ms  {n:6d}x  {name[:110]}")
     return result
+
+
+# ---------------------------------------------------------------------------
+# phases 6 and 7: hyp=gradreg, the gradient regularizer
+# ---------------------------------------------------------------------------
+
+GRADREG_VARIANT = "hyp.grad_reg.implementation={}"
+
+
+def phase_gradreg_fp32(torch, bn):
+    """Phase 3's comparison for ``hyp=gradreg`` with ``forward-differences``
+    (two gradients a chunk: exactly twice the launches) and ``autograd`` (an
+    exact Hessian-vector product through BNTrain's double backward), then
+    the double backward itself at the bench BN shapes."""
+    for implementation in ("forward-differences", "autograd"):
+        log(f"  {implementation}:")
+        counts, doubles, chunks = kernels_against_plain_step(
+            torch, bn, "gradreg", [GRADREG_VARIANT.format(implementation)])
+        base = BN_LAYERS * chunks
+        kernels = ("stats", "bwd_reduce", "bwd_apply")
+        if implementation == "forward-differences":
+            check(all(counts[k] == 2 * base for k in kernels),
+                  f"launches {counts}, expected {2 * base} of each of {kernels}")
+        else:
+            check(all(counts[k] >= base for k in kernels) and doubles > 0,
+                  f"launches {counts} and {doubles} double backwards, expected at least "
+                  f"{base} of each of {kernels} and some double backwards")
+    return phase_double_backward(torch, bn)
+
+
+def phase_double_backward(torch, bn):
+    """BNTrain differentiated twice (first order on the kernels, second order
+    by BNTrainBackward's plain double backward) against
+    ``bn_train_reference`` differentiated twice, float32, at ResNet-18's BN
+    shapes for a chunk of 2048: every first- and second-order value within
+    ``BN_TRAIN_TOL`` of its output's largest entry. Times: both routes'
+    ``grad(create_graph=True)`` then ``grad`` of it, per layer."""
+    dev = torch.device(DEVICE)
+    rows = []
+    for hw, c in STAGES:
+        m = CHUNK * hw
+        g = torch.Generator(device=dev).manual_seed(100 + c)
+
+        def rand(*shape):
+            return torch.randn(shape, generator=g, device=dev)
+
+        x = (rand(m, c) * 1.5 + 0.3).requires_grad_()
+        scale = (rand(c) * 0.5 + 1).requires_grad_()
+        bias = rand(c).requires_grad_()
+        cots = [rand(m, c).requires_grad_(), rand(c).requires_grad_(), rand(c).requires_grad_()]
+        vs = [rand(m, c), rand(c)]
+
+        def derivatives(fn):
+            first = torch.autograd.grad(fn(x, scale, bias), (x, scale, bias), cots,
+                                        create_graph=True)
+            second = torch.autograd.grad(first[:2], (x, scale, *cots), vs)
+            return [t.detach() for t in (*first, *second)]
+
+        before, doubles = dict(bn.launches), bn.double_backward_calls
+        ours = derivatives(bn.bn_train)
+        torch.cuda.synchronize()
+        launched = {k: bn.launches[k] - before[k] for k in before}
+        check(launched == dict.fromkeys(before, 1) and bn.double_backward_calls == doubles + 1,
+              f"double backward at C={c} launched {launched}")
+        refs = derivatives(bn.bn_train_reference)
+        errs = [((o.double() - r.double()).abs().max()
+                 / r.double().abs().max().clamp_min(1e-30)).item() for o, r in zip(ours, refs)]
+        row = {"m": m, "c": c, "max_rel_err": max(errs),
+               "ms": cuda_ms(torch, lambda: derivatives(bn.bn_train), iters=3, warmup=1),
+               "reference_ms": cuda_ms(torch, lambda: derivatives(bn.bn_train_reference),
+                                       iters=3, warmup=1)}
+        rows.append(row)
+        log(f"  double backward M={m:8d} C={c:3d}: rel errs (dx, dscale, dbias, d2x, d2scale, "
+            f"d2dy, d2dmean, d2dvar) {[f'{e:.1e}' for e in errs]} "
+            f"(tol {BN_TRAIN_TOL['float32']:g} of max|reference|); "
+            f"kernel route {row['ms']:.3f} ms, reference {row['reference_ms']:.3f} ms")
+        check(max(errs) <= BN_TRAIN_TOL["float32"],
+              f"BNTrain's double backward at M={m} C={c} disagrees with the reference's")
+        del x, scale, bias, cots, vs, ours, refs
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_gradreg_full_width(torch, bn, fb1):
+    """``hyp=gradreg`` (forward differences) at full width through
+    ``training.train``: twice phase 4's launches of the kernels of the
+    backward and of ``stats``; then its profile, one ``autograd`` step
+    through ``training.train`` and that variant's profile, and the size of
+    the regularizer under bf16 and in float32."""
+    result = {"forward-differences": phase_full_width(torch, bn, "gradreg", passes=2)}
+    for name in ("stats", "bwd_reduce", "bwd_apply"):
+        ours, base = result["forward-differences"]["launches"][name], fb1["launches"][name]
+        check(ours == 2 * base, f"{name}: {ours} launches, twice phase 4's is {2 * base}")
+    result["forward-differences profile"] = phase_profile(torch, "gradreg")
+
+    log("  one autograd step through training.train:")
+    bn.reset_counts()
+    _, _, _, _, stats = run_main_path(
+        torch, FULL_WIDTH + ["hyp.steps=1", GRADREG_VARIANT.format("autograd")], "gradreg")
+    auto = {"step_s": stats["train_time"][0], "train_loss": stats["train_loss"][0],
+            "valid_loss": stats["valid_loss"][0],
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": dict(bn.launches), "vector_launches": dict(bn.vector_launches),
+            "double_backward_calls": bn.double_backward_calls}
+    log(f"  autograd step {auto['step_s']:.3f} s, train loss {auto['train_loss']:.4f}, "
+        f"valid loss {auto['valid_loss']:.4f}, peak memory {auto['peak_memory_gib']:.2f} GiB, "
+        f"launches {auto['launches']}, double backwards {auto['double_backward_calls']}")
+    check(math.isfinite(auto["train_loss"]) and math.isfinite(auto["valid_loss"]),
+          "non-finite autograd loss")
+    check(auto["double_backward_calls"] > 0, "the autograd step ran no double backward")
+    check(auto["vector_launches"] == auto["launches"],
+          "an autograd-step launch did not take 16 bytes a thread")
+    result["autograd"] = auto
+    result["autograd profile"] = phase_profile(torch, "gradreg",
+                                               [GRADREG_VARIANT.format("autograd")])
+    result["regularizer size"] = regularizer_sizes(torch)
+    return result
+
+
+def regularizer_sizes(torch):
+    """``||reg_fn(g) - g|| / ||g||`` for chunk 0 of the full-width epoch
+    (2048 images, lr 0.8), on one set of weights: forward differences under
+    bf16 autocast and in float32, and float32 ``autograd`` (exact); with
+    each increment's cosine against the exact one."""
+    from fullbatchtraining_tpu_torch.config import from_dict
+    from fullbatchtraining_tpu_torch.data import construct_databundle
+    from fullbatchtraining_tpu_torch.models import construct_model
+    from fullbatchtraining_tpu_torch.training import training
+    from fullbatchtraining_tpu_torch.training.grad_reg import make_grad_regularizer, tree_sqnorm
+
+    cases = [("bf16", "forward-differences", []),
+             ("float32", "forward-differences", ["impl.mixed_precision=False"]),
+             ("float32", "autograd", ["impl.mixed_precision=False"])]
+    model, bundle, out, increments = None, None, {}, {}
+    for compute, implementation, extra in cases:
+        cfg = main_path_config(FULL_WIDTH + extra, "gradreg")
+        if model is None:
+            bundle = construct_databundle(cfg.data, cfg.impl, cfg.hyp, seed=cfg.seed)
+            model = construct_model(cfg.model, bundle.channels, bundle.classes, seed=cfg.seed)
+        trainer = training.Trainer(model, bundle, cfg, torch.device(DEVICE))
+        model.train()
+        reg_fn = make_grad_regularizer(
+            from_dict({**cfg.hyp.grad_reg, "implementation": implementation}), trainer.regrad)
+        x, labels = trainer._normalize(trainer.images[0]), trainer.labels[0]
+        grads = trainer.regrad(trainer.params, x, labels)
+        regularized = reg_fn(grads, trainer.params, x, labels, None, trainer.schedule(0))
+        increment = [r - g for r, g in zip(regularized, grads)]
+        key = f"{compute} {implementation}"
+        increments[key] = increment
+        out[key] = {"ratio": (tree_sqnorm(increment) / tree_sqnorm(grads)).sqrt().item()}
+        del trainer, grads, regularized, x
+        torch.cuda.empty_cache()
+    exact = increments["float32 autograd"]
+    for key, increment in increments.items():
+        dot = sum((a * b).sum() for a, b in zip(increment, exact))
+        out[key]["cosine_with_exact"] = (dot / (tree_sqnorm(increment)
+                                                * tree_sqnorm(exact)).sqrt()).item()
+        log(f"  ||reg_fn(g) - g|| / ||g||, {key}: {out[key]['ratio']:.4e}; "
+            f"increment's cosine with float32 autograd's {out[key]['cosine_with_exact']:.4f}")
+    return out
 
 
 def main() -> int:
@@ -516,6 +723,10 @@ def main() -> int:
     full = phase_full_width(torch, bn)
     log("[5] profile of one full-width step")
     profile = phase_profile(torch)
+    log("[6] float32 hyp=gradreg step: kernels against plain versions")
+    double_backward = phase_gradreg_fp32(torch, bn)
+    log("[7] hyp=gradreg at full width: ResNet-18, 3 steps, bf16")
+    gradreg = phase_gradreg_full_width(torch, bn, full)
 
     kernels = []
     for name in ("stats", "apply", "bwd_reduce", "bwd_apply"):
@@ -527,6 +738,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
             "launches": full["launches"][name],
+            "launches_gradreg": gradreg["forward-differences"]["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": "bytes", "library_ms": total("library_ms")})
@@ -538,6 +750,7 @@ def main() -> int:
         Path(args.out).write_text(json.dumps(
             {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
              "compiler": compiler, "kernel_rows": rows, "full_width": full, "profile": profile,
+             "double_backward": double_backward, "gradreg": gradreg,
              "kernels": kernels}, indent=1))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -24,6 +24,10 @@ addresses, and each launch at 16 bytes also adds one to
 Sums and coefficients are kept in ``promote(x.dtype, float32)``: float32 for
 float32 and bfloat16 inputs, float64 for float64 (the rule of the model's
 BatchNorm, ``_TorchBatchNorm.stat_dtype``).
+
+``BNTrain`` runs its backward through ``BNTrainBackward``, so it can be
+differentiated twice; that double backward is plain PyTorch and counts its
+calls in ``double_backward_calls``.
 """
 
 from __future__ import annotations
@@ -41,6 +45,8 @@ launches = {"stats": 0, "apply": 0, "bwd_reduce": 0, "bwd_apply": 0}
 vector_launches = dict.fromkeys(launches, 0)
 # channels-last copies BNTrain had to make of an input or an incoming gradient
 layout_copies = 0
+# double backwards of BNTrain (BNTrainBackward.backward, plain PyTorch)
+double_backward_calls = 0
 
 _force_plain = False
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float64: "f64"}
@@ -51,11 +57,12 @@ _MIN_ELEMENTS_PER_BLOCK = 8192
 
 
 def reset_counts() -> None:
-    global layout_copies
+    global layout_copies, double_backward_calls
     for counts in (launches, vector_launches):
         for name in counts:
             counts[name] = 0
     layout_copies = 0
+    double_backward_calls = 0
 
 
 @contextlib.contextmanager
@@ -257,7 +264,9 @@ def as_rows(t: torch.Tensor) -> torch.Tensor:
 class BNTrain(torch.autograd.Function):
     """``(y, mean, biased var)`` over every axis but the trailing channel
     axis; differentiable in x, scale and bias with mean and var treated as
-    functions of x, and correct for cotangents of mean and var too."""
+    functions of x, and correct for cotangents of mean and var too. Its
+    backward is :class:`BNTrainBackward`, so it can be differentiated twice
+    (``create_graph=True``)."""
 
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda")
@@ -272,16 +281,43 @@ class BNTrain(torch.autograd.Function):
         a = scale.to(acc) * invstd
         b = bias.to(acc) - mean * a
         y = apply(x2, torch.stack([a, b]))
-        ctx.save_for_backward(x2, scale, mean, invstd)
-        ctx.shape = x.shape
+        # x itself, not its rows: under create_graph the saved input comes
+        # back with its history, so the double backward reaches x's producer
+        ctx.save_for_backward(x, scale, mean, invstd)
+        ctx.eps = eps
         return y.view(x.shape), mean, var
 
     @staticmethod
     @torch.amp.custom_bwd(device_type="cuda")
     def backward(ctx, dy, dmean, dvar):
-        x2, scale, mean, invstd = ctx.saved_tensors
+        x, scale, mean, invstd = ctx.saved_tensors
+        x2 = as_rows(x)
+        dy2 = as_rows(dy.to(x.dtype))
+        dx, dscale, dbias = BNTrainBackward.apply(dy2, x2, scale, dmean, dvar,
+                                                  mean.detach(), invstd, ctx.eps)
+        return dx.view(x.shape), dscale, dbias, None
+
+
+class BNTrainBackward(torch.autograd.Function):
+    """``(dx, dscale, dbias)`` of :class:`BNTrain` from ``dy [M, C]`` and the
+    cotangents of mean and var: the ``bwd_reduce`` and ``bwd_apply`` kernels
+    and the ``[C]`` glue between them, differentiable in
+    ``(dy, x, scale, dmean, dvar)``.
+
+    ``mean`` and ``invstd`` come in as values (BNTrain made them with grad
+    mode off). The backward of this Function, the double backward of
+    BNTrain, treats them as functions of x: it recomputes the train-mode BN
+    backward from :func:`bn_train_reference` in ``stat_dtype`` under
+    ``torch.enable_grad()`` and differentiates it. That is plain PyTorch by
+    design, not a fallback: the JAX package has no kernel for this
+    derivative either (its Hessian-vector products differentiate the plain
+    ``_TorchBatchNorm``), and every first-order value still comes from the
+    kernels. Each call adds one to ``double_backward_calls``."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, dy2, x2, scale, dmean, dvar, mean, invstd, eps: float):
         n = x2.shape[0]
-        dy2 = as_rows(dy.to(x2.dtype))
         sums = bwd_reduce(dy2, x2)
         s1 = sums[0]                    # sum(dy)
         s2 = sums[1] - mean * s1        # sum(dy * (x - mean))
@@ -290,9 +326,28 @@ class BNTrain(torch.autograd.Function):
         c2 = (-a * invstd * invstd * s2 + 2.0 * dvar) / n
         c1 = (-a * s1 + dmean) / n - c2 * mean
         dx = bwd_apply(dy2, x2, torch.stack([a, c1, c2]))
-        dscale = (s2 * invstd).to(scale.dtype)
-        dbias = s1.to(scale.dtype)
-        return dx.view(ctx.shape), dscale, dbias, None
+        ctx.save_for_backward(dy2, x2, scale, dmean, dvar)
+        ctx.eps = eps
+        return dx, (s2 * invstd).to(scale.dtype), s1.to(scale.dtype)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, ddx, ddscale, ddbias):
+        global double_backward_calls
+        double_backward_calls += 1
+        inputs = ctx.saved_tensors
+        acc = stat_dtype(inputs[1].dtype)
+        with torch.enable_grad(), torch.autocast(inputs[1].device.type, enabled=False):
+            dy, x, scale, dmean, dvar = leaves = [t.detach().to(acc).requires_grad_()
+                                                  for t in inputs]
+            bias = torch.zeros_like(scale, requires_grad=True)
+            outs = bn_train_reference(x, scale, bias, ctx.eps)
+            first = torch.autograd.grad(outs, (x, scale, bias), (dy, dmean, dvar),
+                                        create_graph=True)
+            cotangents = [g.to(acc) for g in (ddx, ddscale, ddbias)]
+            second = torch.autograd.grad(first, leaves, cotangents, allow_unused=True)
+        return (*(None if g is None else g.to(t.dtype) for g, t in zip(second, inputs)),
+                None, None, None)
 
 
 def bn_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5):

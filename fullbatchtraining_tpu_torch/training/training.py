@@ -3,10 +3,12 @@
 One optimizer step averages the gradient of the whole training set, chunk by
 chunk, then applies the gradient modifiers and one SGD step:
 
+    with hyp.grad_reg.acc_strength: streaming mean of per-block gradients
     for each chunk (sub_batch samples, in epoch order):
         crop+flip, normalize, forward + backward (train-mode BN, whose
         running stats carry on from chunk to chunk), loss
-        squared gradient norm (before clipping), optional per-chunk clip
+        squared gradient norm (before the regularizer and clipping)
+        gradient regularizer (hyp.grad_reg), optional per-chunk clip
         streaming mean  avg += (g - avg) / (chunk + 1)  in accumulation dtype
     norm bias, full-gradient clip, gradient noise
     SGD step at lr = schedule(step), EMA
@@ -28,10 +30,12 @@ from collections import defaultdict
 import numpy as np
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from ..data.augmentations import normalize as normalize_images
 from ..data.pipeline import DataBundle, epoch_layout, layout_epoch
 from ..models.modules import get_loss_fn
+from .grad_reg import make_grad_regularizer, tree_sqnorm
 from .optimizers import make_lr_schedule, make_optimizer
 
 log = logging.getLogger(__name__)
@@ -66,8 +70,6 @@ def check_slice(cfg) -> None:
          or hyp.train_semi_stochastic, "stochastic training modes",
          "Stochastic modes and baked data"),
         (hyp.shuffle, "hyp.shuffle=True", "Stochastic modes and baked data"),
-        (hyp.grad_reg.block_strength or hyp.grad_reg.acc_strength,
-         "gradient regularization", "Gradient regularizer"),
         (cfg.impl.checkpoint.name is not None, "checkpoints", "Checkpoints"),
         (cfg.impl.setup.dist, "distributed setup", "Data parallelism"),
         (cfg.analysis.type is not None, "analysis.type", "Analysis"),
@@ -80,10 +82,6 @@ def check_slice(cfg) -> None:
     for active, what, item in missing:
         if active:
             raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, '{item}')")
-
-
-def tree_sqnorm(tensors) -> torch.Tensor:
-    return torch.stack([t.square().sum() for t in tensors]).sum()
 
 
 def tree_clip_by_norm(tensors, max_norm, norm_type, eps=1e-6):
@@ -154,7 +152,10 @@ class Trainer:
         self.std = torch.as_tensor(bundle.std, device=device)
 
         model.to(device=device, dtype=self.param_dtype, memory_format=torch.channels_last)
+        self.model = model
+        self.param_names = [name for name, _ in model.named_parameters()]
         self.params = list(model.parameters())
+        self.reg_fn = make_grad_regularizer(hyp.grad_reg, self.regrad)
 
         # the epoch stays resident on the device as uint8, one row per chunk
         images, labels = layout_epoch(bundle.train.images, bundle.train.labels,
@@ -178,12 +179,54 @@ class Trainer:
         seed = self.cfg.seed if self.cfg.seed is not None else 0
         return torch.Generator(device=self.device).manual_seed(int(seed) * 1_000_003 + step)
 
+    def regrad(self, params, x, labels, create_graph=False):
+        """Gradient of the chunk loss with respect to ``params`` (a list in
+        ``self.params`` order, requiring grad) on the prepared inputs ``x``:
+        the regularizer's ``grad_fn``. BatchNorm runs in train mode on clones
+        of the running stats, so the model's own see one update per chunk."""
+        state = dict(zip(self.param_names, params))
+        state.update({name: b.clone() for name, b in self.model.named_buffers()})
+        logits = self.forward(lambda inputs: functional_call(self.model, state, (inputs,)), x)
+        loss = self.criterion(logits, labels)
+        return list(torch.autograd.grad(loss, params, create_graph=create_graph))
+
+    def _add_to_mean(self, avg, grads, count):
+        """``avg += (grads - avg) / count`` after the optional per-block clip;
+        returns the clip flag or None."""
+        hyp = self.cfg.hyp
+        grads = [g.to(self.acc_dtype) for g in grads]
+        was_clipped = None
+        if hyp.batch_clip is not None:
+            grads, was_clipped, _ = tree_clip_by_norm(grads, hyp.batch_clip, hyp.grad_clip_norm)
+        diff = torch._foreach_sub(grads, avg)
+        torch._foreach_div_(diff, count)
+        torch._foreach_add_(avg, diff)
+        return was_clipped
+
+    def pre_gradient(self, gen):
+        """The ``hyp.grad_reg.acc_strength`` pre-pass: streaming mean of the
+        gradients of whole blocks (one forward over ``chunks * sub`` images
+        each) at the step's parameters, with the step's running stats, whose
+        updates it discards. Its augmentations are drawn from the step's
+        generator ``gen``, before those of the main pass."""
+        avg = [torch.zeros_like(p, dtype=self.acc_dtype) for p in self.params]
+        for bidx in range(self.num_blocks):
+            rows = slice(bidx * self.chunks, (bidx + 1) * self.chunks)
+            images, labels = self.images[rows].flatten(0, 1), self.labels[rows].flatten(0, 1)
+            if self.bundle.augmentations_active:
+                images = self.bundle.augment(images, gen)
+            grads = self.regrad(self.params, self._normalize(images), labels)
+            self._add_to_mean(avg, grads, bidx + 1)
+        return avg
+
     # -- one full-batch step --------------------------------------------------
-    def accumulate(self, model, gen):
+    def accumulate(self, model, gen, lr):
         """Streaming mean of the chunk gradients over the epoch, BN stats
-        carried along. Returns (avg grads, metrics, squared chunk norms)."""
+        carried along, each chunk's gradient regularized at learning rate
+        ``lr``. Returns (avg grads, metrics, squared chunk norms)."""
         hyp = self.cfg.hyp
         model.train()
+        pre_grads = self.pre_gradient(gen) if hyp.grad_reg.acc_strength != 0 else None
         avg = [torch.zeros_like(p, dtype=self.acc_dtype) for p in self.params]
         sloss = torch.zeros((), dtype=self.stat_dtype, device=self.device)
         spreds = torch.zeros((), dtype=self.stat_dtype, device=self.device)
@@ -192,24 +235,26 @@ class Trainer:
             images, labels = self.images[cidx], self.labels[cidx]
             if self.bundle.augmentations_active:
                 images = self.bundle.augment(images, gen)
-            logits = self.forward(model, self._normalize(images))
+            x = self._normalize(images)
+            logits = self.forward(model, x)
             loss = self.criterion(logits, labels)
             grads = torch.autograd.grad(loss, self.params)
             sq_norms.append(tree_sqnorm(grads))
-            grads = [g.to(self.acc_dtype) for g in grads]
-            if hyp.batch_clip is not None:
-                grads, was_clipped, _ = tree_clip_by_norm(grads, hyp.batch_clip,
-                                                          hyp.grad_clip_norm)
+            if self.reg_fn is not None:
+                grads = self.reg_fn(grads, self.params, x, labels, pre_grads, lr)
+            was_clipped = self._add_to_mean(avg, grads, cidx + 1)
+            if was_clipped is not None:
                 clipped.append(was_clipped.to(torch.float32))
-            diff = torch._foreach_sub(grads, avg)
-            torch._foreach_div_(diff, cidx + 1)
-            torch._foreach_add_(avg, diff)
             sloss = sloss + loss.detach() / self.chunks
             spreds = spreds + (logits.argmax(-1) == labels).to(self.stat_dtype).sum()
 
         sq_norms = torch.stack(sq_norms)
         param_norm = tree_sqnorm([p.detach() for p in self.params])
         full_loss = sloss / self.num_blocks + 0.5 * self.weight_decay * param_norm
+        if hyp.grad_reg.block_strength != 0:
+            full_loss = full_loss + lr / 4 * hyp.grad_reg.block_strength * sq_norms.mean()
+        if pre_grads is not None:
+            full_loss = full_loss + lr / 4 * hyp.grad_reg.acc_strength * tree_sqnorm(pre_grads)
         metrics = {
             "train_loss": sloss / self.num_blocks,
             "train_acc": spreds / (self.num_blocks * self.chunks * self.sub),
@@ -253,7 +298,7 @@ class Trainer:
         device scalars plus the per-chunk gradient norms."""
         lr = self.schedule(state.step)
         gen = self.generator(state.step)
-        grads, metrics, sq_norms = self.accumulate(state.model, gen)
+        grads, metrics, sq_norms = self.accumulate(state.model, gen, lr)
         grads, metrics = self.modify_gradient(grads, gen, metrics)
         for group in state.optimizer.param_groups:
             group["lr"] = lr

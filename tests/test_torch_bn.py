@@ -7,7 +7,9 @@ rows) and ``pallas_bn.bn_train_reference``, for float32 and bfloat16. Those
 compute their statistics in float32 always; for float64 the oracle is the
 same formula in float64, the rule of ``_TorchBatchNorm`` (statistics in
 promote(x.dtype, float32)). Tolerances: float32 1e-5 (summation order),
-bfloat16 2e-2 (one bf16 rounding of y and dx), float64 1e-12.
+bfloat16 2e-2 (one bf16 rounding of y and dx), float64 1e-12. BNTrain's
+double backward is held against ``bn_train_reference`` differentiated twice,
+in float64: first order 1e-12, second order 1e-10.
 """
 
 import jax
@@ -281,3 +283,60 @@ def test_cpu_tensors_launch_nothing():
     torch.testing.assert_close(bn.bwd_apply(dy, x, coef), bn.bwd_apply_plain(dy, x, coef))
     assert (bn.launches, bn.vector_launches) == before
     assert set(bn.vector_launches) == set(bn.launches)
+
+
+# --------------------------------------------------------------------------
+# BNTrain differentiated twice (the exact Hessian-vector products of the
+# gradient regularizer), in float64
+# --------------------------------------------------------------------------
+
+DOUBLE_SHAPES = [(3, 4, 5, 6), (40, 8)]
+
+
+def _double_inputs(shape, seed=0):
+    rng = np.random.default_rng(seed)
+    c = shape[-1]
+    x = torch.tensor(rng.standard_normal(shape) * 1.5 + 0.3, requires_grad=True)
+    scale = torch.tensor(rng.standard_normal(c) * 0.5 + 1.0, requires_grad=True)
+    bias = torch.tensor(rng.standard_normal(c), requires_grad=True)
+    # cotangents of (y, mean, var), all non-zero, themselves differentiated
+    cots = [torch.tensor(rng.standard_normal(s), requires_grad=True) for s in (shape, c, c)]
+    return x, scale, bias, cots
+
+
+@pytest.mark.parametrize("shape", DOUBLE_SHAPES, ids=str)
+def test_bn_train_gradgradcheck(shape):
+    x, scale, bias, cots = _double_inputs(shape)
+    assert torch.autograd.gradgradcheck(
+        lambda *a: bn.bn_train(*a), (x, scale, bias),
+        grad_outputs=[c.detach() for c in cots])
+
+
+@pytest.mark.parametrize("shape", DOUBLE_SHAPES, ids=str)
+def test_double_backward_matches_reference(shape):
+    """First-order values to 1e-12 and second-order ones to 1e-10 of
+    ``bn_train_reference``'s, differentiated in every input and cotangent."""
+    x, scale, bias, cots = _double_inputs(shape)
+    inputs = (x, scale, bias, *cots)
+    before = bn.double_backward_calls
+
+    def derivatives(fn):
+        first = torch.autograd.grad(fn(x, scale, bias), (x, scale, bias), cots,
+                                    create_graph=True)
+        vs = [torch.tensor(np.random.default_rng(7 + i).standard_normal(tuple(f.shape)))
+              for i, f in enumerate(first)]
+        # dbias = sum(dy) is linear in dy alone: the reference gives it no
+        # graph to x, so only the first two enter the second derivative
+        second = torch.autograd.grad(first[:2], inputs, vs[:2], allow_unused=True)
+        return first, second
+
+    first, second = derivatives(bn.bn_train)
+    assert bn.double_backward_calls == before + 1
+    first_ref, second_ref = derivatives(bn.bn_train_reference)
+    for ours, ref, what in zip(first, first_ref, ("dx", "dscale", "dbias")):
+        _close(_np(ours), _np(ref), 1e-12, what)
+    for ours, ref, what in zip(second, second_ref, ("x", "scale", "bias", "dy", "dmean", "dvar")):
+        if ref is None:
+            assert ours is None or not ours.abs().max(), what
+            continue
+        _close(_np(ours), _np(ref), 1e-10, f"d2 {what}")

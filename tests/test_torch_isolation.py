@@ -82,7 +82,7 @@ def test_cli_dryrun(device, tmp_path):
 BOUNDARIES = {
     "stochastic": ["hyp.train_stochastic=True"],
     "shuffle": ["hyp.shuffle=True"],
-    "gradreg": ["hyp.grad_reg.block_strength=0.5"],
+    "semi-stochastic": ["hyp.train_semi_stochastic=True"],
     "checkpoint": ["impl.checkpoint.name=run.ckpt"],
     "distributed": ["impl/setup=distributed"],
     "analysis": ["analysis=full"],

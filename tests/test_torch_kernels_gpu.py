@@ -178,3 +178,79 @@ def test_widths_and_edges(cuda, name, c, m, dtype, aligned):
     # |k0*in0| + |k1| (+ |k2*in1|): apply a*x + b, bwd_apply a*dy + c1 + c2*x
     magnitude = k[1].abs() + sum((t.to(k.dtype) * k[j]).abs() for t, j in zip(inputs, (0, 2)))
     _assert_elementwise_close(out, ref, magnitude, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+def test_bn_train_double_backward_matches_reference(cuda, dtype):
+    """BNTrain differentiated twice: first order on the kernels, second order
+    through BNTrainBackward's plain double backward, against autograd through
+    stock ops twice. Tolerance relative to the largest entry: float32 1e-4,
+    float64 1e-10."""
+    shape = (4, 16, 16, 64)
+    x = _data(shape, dtype, cuda, 20).requires_grad_()
+    scale = _coef(1, 64, dtype, cuda, 21)[0].add(1.0).requires_grad_()
+    bias = _coef(1, 64, dtype, cuda, 22)[0].requires_grad_()
+    cots = [_data(shape, dtype, cuda, 23).requires_grad_(),
+            _coef(1, 64, dtype, cuda, 24)[0].requires_grad_(),
+            _coef(1, 64, dtype, cuda, 25)[0].requires_grad_()]
+    vs = [_data(shape, dtype, cuda, 26), _coef(1, 64, dtype, cuda, 27)[0]]
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+
+    def derivatives(fn):
+        first = torch.autograd.grad(fn(x, scale, bias), (x, scale, bias), cots,
+                                    create_graph=True)
+        return first, torch.autograd.grad(first[:2], (x, scale, *cots), vs)
+
+    before = (dict(bn.launches), bn.double_backward_calls)
+    first, second = derivatives(bn.bn_train)
+    torch.cuda.synchronize()
+    assert bn.double_backward_calls == before[1] + 1
+    assert bn.launches["bwd_apply"] == before[0]["bwd_apply"] + 1
+    first_ref, second_ref = derivatives(bn.bn_train_reference)
+    for ours, ref in zip((*first, *second), (*first_ref, *second_ref)):
+        torch.testing.assert_close(ours, ref, rtol=tol, atol=tol * ref.abs().max().item())
+
+
+def test_forward_differences_on_the_kernels_matches_plain(cuda):
+    """One regularized chunk gradient (``forward-differences``) of ResNet-18
+    at width 8 in float64 through ``Trainer.regrad``, on the kernels and on
+    the plain versions: 1e-9 of each tensor's largest entry (the two differ
+    in the BN sums' order, about 1e-15, which the finite difference
+    amplifies about a hundredfold)."""
+    from pathlib import Path
+
+    from fullbatchtraining_tpu_torch.config import load_config
+    from fullbatchtraining_tpu_torch.data import construct_databundle
+    from fullbatchtraining_tpu_torch.models import construct_model
+    from fullbatchtraining_tpu_torch.training.grad_reg import make_grad_regularizer
+    from fullbatchtraining_tpu_torch.training.training import Trainer
+
+    root = Path(__file__).resolve().parent.parent
+    cfg = load_config(root / "config", overrides=[
+        "model=resnet18", "model.width=8", "hyp=gradreg", "data.size=16",
+        "data.batch_size=16", "hyp.sub_batch=16", f"data.path={root / 'build' / 'no_data'}",
+        "impl.dtype=float64", "impl.accumulation_dtype=float64",
+        "impl.mixed_precision=False"])
+    bundle = construct_databundle(cfg.data)
+    model = construct_model(cfg.model, bundle.channels, bundle.classes)
+    trainer = Trainer(model, bundle, cfg, cuda)
+    model.train()
+    reg_fn = make_grad_regularizer(cfg.hyp.grad_reg, trainer.regrad)
+    g = torch.Generator(device=cuda).manual_seed(30)
+    x = torch.randn((16, 32, 32, 3), generator=g, device=cuda, dtype=torch.float64)
+    labels = torch.randint(0, 10, (16,), generator=g, device=cuda)
+
+    def regularized():
+        grads = trainer.regrad(trainer.params, x, labels)
+        return reg_fn(grads, trainer.params, x, labels, None, 0.8)
+
+    bn.reset_counts()
+    ours = regularized()
+    torch.cuda.synchronize()
+    counts = dict(bn.launches)
+    assert all(counts[k] == 2 * 20 for k in ("stats", "bwd_reduce", "bwd_apply")), counts
+    with bn.plain_versions():
+        ref = regularized()
+    assert bn.launches == counts
+    for o, r in zip(ours, ref):
+        torch.testing.assert_close(o, r, rtol=1e-9, atol=1e-9 * r.abs().max().item())

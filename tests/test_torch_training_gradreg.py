@@ -1,0 +1,99 @@
+"""The port's ``train()`` with the gradient regularizer against the JAX package's.
+
+``hyp=gradreg`` on ResNet-18 (width 4) in float64, 3 steps from the same
+weights and the same synthetic data without augmentation, as in
+``tests/test_torch_training.py``: 2 blocks of 16 images in chunks of 8, so a
+block of the ``acc_strength`` pre-pass holds two chunks. ``hyp.warmup=0``:
+with a warmup, step 0 runs at ``lr = 0`` and so without any regularizer. The
+JAX side runs on a 1-device mesh with ``impl.block_grouping=1``.
+
+Params, BN running stats and every ``stats`` entry agree to rtol 1e-8, as in
+the ``hyp=fb1`` test: the regularized chunk gradients alone agree to about
+1e-12 (``tests/test_torch_gradreg.py``), and 3 steps amplify that well below
+1e-8.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import fullbatchtraining_tpu.models.models as jax_models
+from fullbatchtraining_tpu.config import load_config as jax_load_config
+from fullbatchtraining_tpu.data import construct_databundle as jax_databundle
+from fullbatchtraining_tpu.parallel import make_mesh
+from fullbatchtraining_tpu.training.training import train as jax_train
+from fullbatchtraining_tpu_torch.config import load_config
+from fullbatchtraining_tpu_torch.convert import export_jax_variables, load_jax_variables
+from fullbatchtraining_tpu_torch.data import construct_databundle
+from fullbatchtraining_tpu_torch.models import construct_model
+from fullbatchtraining_tpu_torch.training import train
+
+RTOL = 1e-8
+
+BASE = [
+    "model=resnet18", "model.width=4", "hyp=gradreg", "data.size=32",
+    "data.path=/tmp/__torch_nodata__", "data.batch_size=16", "hyp.sub_batch=8",
+    "hyp.steps=3", "hyp.warmup=0", "impl.validate_every_nth_step=1",
+    "data.augmentations_train=", "impl.dtype=float64", "impl.accumulation_dtype=float64",
+    "impl.mixed_precision=False", "impl.block_grouping=1", "impl.eval_block_chunks=1",
+    "seed=0", "name=torch_gradreg_parity",
+]
+CASES = {
+    # as the yaml has it: block_strength 0.5, grad_clip 0.25
+    "forward-differences": [],
+    "central-differences-acc": ["hyp.grad_reg.implementation=central-differences",
+                                "hyp.grad_reg.acc_strength=0.5", "hyp.batch_clip=0.9"],
+    "autograd-pen-acc": ["hyp.grad_reg.implementation=autograd-pen",
+                         "hyp.grad_reg.acc_strength=0.5"],
+}
+
+
+def _assert_trees_close(ours, ref, path=""):
+    assert set(ours) == set(ref), (path, set(ours) ^ set(ref))
+    for key in ref:
+        if isinstance(ref[key], dict):
+            _assert_trees_close(ours[key], ref[key], f"{path}/{key}")
+        else:
+            np.testing.assert_allclose(ours[key], np.asarray(ref[key]), rtol=RTOL, atol=1e-12,
+                                       err_msg=f"{path}/{key}")
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_gradreg_train_matches_jax(case, config_dir, monkeypatch):
+    overrides = BASE + CASES[case]
+    with jax.enable_x64(True):
+        cfg = jax_load_config(config_dir, overrides=overrides)
+        mesh = make_mesh(cfg.impl.setup, devices=np.asarray(jax.devices()[:1]))
+        bundle = jax_databundle(cfg.data, cfg.impl, cfg.hyp, seed=0)
+        model = jax_models.construct_model(cfg.model, bundle.channels, bundle.classes)
+        # float64 variables for the JAX train(), as in tests/test_torch_training.py
+        variables = jax.device_get(jax_models.initialize_model(
+            model, jax.random.key(cfg.seed), bundle.pixels, bundle.channels,
+            dtype=jnp.float64))
+        monkeypatch.setattr(jax_models, "initialize_model", lambda *a, **k: variables)
+        state, ref_stats = jax_train(model, bundle, mesh, cfg)
+        ref_params = jax.device_get(state.params)
+        ref_bn = jax.device_get(state.batch_stats)
+
+    tcfg = load_config(config_dir, overrides=overrides)
+    tbundle = construct_databundle(tcfg.data, tcfg.impl, tcfg.hyp, seed=0)
+    np.testing.assert_array_equal(tbundle.train.images, bundle.train.images)
+    tmodel = construct_model(tcfg.model, tbundle.channels, tbundle.classes).to(torch.float64)
+    load_jax_variables(tmodel, variables)
+    tstate, stats = train(tmodel, tbundle, tcfg, device="cpu")
+
+    assert tstate.step == 3
+    ours = export_jax_variables(tmodel)
+    _assert_trees_close(ours["params"], ref_params, "params")
+    _assert_trees_close(ours["batch_stats"], ref_bn, "batch_stats")
+
+    keys = set(ref_stats) - {"train_time"}
+    assert keys == set(stats) - {"train_time"}
+    assert stats["lr"][0] > 0
+    if "hyp.batch_clip=0.9" in overrides:
+        assert 0 < sum(stats["clipped_batches"]) < 3 * 4, stats["clipped_batches"]
+    for key in sorted(keys):
+        np.testing.assert_allclose(stats[key], ref_stats[key], rtol=RTOL, atol=1e-12,
+                                   err_msg=key)
