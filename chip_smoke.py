@@ -45,11 +45,26 @@ Phases, in order; any failure exits non-zero before the result lines:
    in phase 5; one ``autograd`` step through ``training.train`` and its
    profile; and ``||reg_fn(g) - g|| / ||g||`` of one chunk under bf16 and in
    float32, beside the exact float32 value.
+8. The SGD baseline, shuffled epochs, SAM and checkpoints. (a) Phase 2's
+   check at the BN shapes of a block of 128 and a chunk of 32 images, where
+   the host's time to issue a call can exceed the kernel's. (b)
+   ``hyp=base_sgd`` epochs of 16 shuffled updates, without and with SAM,
+   kernels against plain versions: in float32 the first update within phase
+   3's tolerance and the later ones beside a control run from weights off
+   by a few ulps; in float64 all 16 within 1e-10. (c) ``hyp=base_sgd`` as its yaml has it
+   through ``training.train``: 2 steps of 390 updates, exact launch counts,
+   the profile of an epoch cut to 50 updates. (d) The paper's "FB in practice" step,
+   ``hyp=gradreg data.batch_size=32 hyp.shuffle=True`` in bf16, cut to 390
+   of its 1562 chunks, exact launch counts, the profile of a step cut to 32
+   chunks; one shuffled
+   ``hyp=fb1`` step with phase 4's launches and its epoch gather time. (e) A
+   run resumed from an async checkpoint, bitwise equal to the straight run.
 
 The last lines are the card line, a JSON object of per-kernel numbers (their
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` sum the 20 BN layers of
-one bf16 chunk of 2048 images; ``launches`` counts phase 4 and
-``launches_gradreg`` phase 7), and ``{"ok": true, "device": {...}}``.
+one bf16 chunk of 2048 images; ``launches`` counts phase 4,
+``launches_gradreg`` phase 7, ``launches_sgd`` phase 8c and
+``launches_fb_shuffle`` phase 8d), and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -153,7 +168,9 @@ def access_bytes(bn, name, before, itemsize) -> int:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def phase_kernels(torch, bn):
+def phase_kernels(torch, bn, chunk=CHUNK):
+    """Every kernel against its plain version at the BN shapes of a chunk of
+    ``chunk`` images, with its times."""
     import torch.nn.functional as F
 
     rows = []
@@ -161,7 +178,7 @@ def phase_kernels(torch, bn):
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
         for hw, c in STAGES:
-            m = CHUNK * hw
+            m = chunk * hw
             g = torch.Generator(device=dev).manual_seed(hw + c)
             x = (torch.randn((m, c), generator=g, device=dev) * 1.5 + 0.3).to(dtype)
             dy = torch.randn((m, c), generator=g, device=dev).to(dtype)
@@ -186,7 +203,7 @@ def phase_kernels(torch, bn):
                       "bwd_reduce": lambda: bn.bwd_reduce(dy, x_off),
                       "apply": lambda: bn.apply(x_off, ab),
                       "bwd_apply": lambda: bn.bwd_apply(dy, x_off, coef)}
-            library = library_calls(torch, F, x, dy, ab, hw, c)
+            library = library_calls(torch, F, x, dy, ab, hw, c, chunk)
             for name, call in calls.items():
                 before = dict(bn.vector_launches)
                 out = call()
@@ -195,7 +212,7 @@ def phase_kernels(torch, bn):
                 err, rel, tol = against_plain(name, out, plain[name], scale[name], dtype_name)
                 with bn.plain_versions():
                     plain_ms = cuda_ms(torch, call)
-                row = {"kernel": name, "dtype": dtype_name, "m": m, "c": c,
+                row = {"kernel": name, "dtype": dtype_name, "images": chunk, "m": m, "c": c,
                        "access_bytes": width,
                        "max_abs_err": err, "max_rel_err": rel, "tolerance": tol,
                        "ms": cuda_ms(torch, call), "host_ms": host_ms(torch, call),
@@ -212,7 +229,7 @@ def phase_kernels(torch, bn):
                 check(width == 16, f"{name} {dtype_name} C={c} took {width}-byte accesses")
                 row.update(narrow_run(torch, bn, name, narrow[name], plain[name], scale[name],
                                       dtype_name, x.element_size()))
-            rows.append(phase_bn_train(torch, bn, F, x, dy, dtype_name, hw, c))
+            rows.append(phase_bn_train(torch, bn, F, x, dy, dtype_name, hw, c, chunk))
             del x, dy, x_off, plain, scale, calls, narrow, library
             torch.cuda.empty_cache()
     return rows
@@ -248,14 +265,14 @@ def against_plain(name, out, plain, scale, dtype_name):
     return err.max().item(), (err / size.clamp_min(1e-30)).max().item(), tol
 
 
-def library_calls(torch, F, x, dy, ab, hw, c):
+def library_calls(torch, F, x, dy, ab, hw, c, chunk=CHUNK):
     """One PyTorch call per kernel computing the same function on the same
     [N, C, H, W] channels_last views: the CUDA batch-norm functions that
     SyncBatchNorm calls, and eval-mode ``F.batch_norm`` for ``apply``. They
     are yardsticks, timed here only; the port never calls them."""
     side = math.isqrt(hw)
-    xl = x.view(CHUNK, side, side, c).permute(0, 3, 1, 2)
-    dyl = dy.view(CHUNK, side, side, c).permute(0, 3, 1, 2)
+    xl = x.view(chunk, side, side, c).permute(0, 3, 1, 2)
+    dyl = dy.view(chunk, side, side, c).permute(0, 3, 1, 2)
     # per-channel mean and invstd: the statistics of (sum x, sum x^2)
     mean, invstd = torch.batch_norm_stats(xl, 1e-5)
     # sum dy and sum dy*(x - mean): bwd_reduce's s1 and s2 - mean*s1
@@ -276,7 +293,7 @@ def library_calls(torch, F, x, dy, ab, hw, c):
     }
 
 
-def phase_bn_train(torch, bn, F, x, dy, dtype_name, hw, c):
+def phase_bn_train(torch, bn, F, x, dy, dtype_name, hw, c, chunk=CHUNK):
     """BNTrain forward+backward on the kernels against the same Function on
     the plain versions; F.batch_norm(training=True) forward+backward timed
     beside it."""
@@ -296,14 +313,14 @@ def phase_bn_train(torch, bn, F, x, dy, dtype_name, hw, c):
         plain_ms = cuda_ms(torch, step, iters=10)
     errs = [((o.double() - r.double()).abs().max() / r.double().abs().max().clamp_min(1e-30)).item()
             for o, r in zip(outs, refs)]
-    xl = x.detach().view(CHUNK, side, side, c).permute(0, 3, 1, 2).requires_grad_()
-    dyl = dy.view(CHUNK, side, side, c).permute(0, 3, 1, 2)
+    xl = x.detach().view(chunk, side, side, c).permute(0, 3, 1, 2).requires_grad_()
+    dyl = dy.view(chunk, side, side, c).permute(0, 3, 1, 2)
 
     def library():
         y = F.batch_norm(xl, None, None, scale, bias, training=True)
         return torch.autograd.grad(y, (xl, scale, bias), dyl)
 
-    row = {"kernel": "bn_train", "dtype": dtype_name, "m": x.shape[0], "c": c,
+    row = {"kernel": "bn_train", "dtype": dtype_name, "images": chunk, "m": x.shape[0], "c": c,
            "max_abs_err": max((o.double() - r.double()).abs().max().item()
                               for o, r in zip(outs, refs)),
            "max_rel_err": max(errs), "tolerance": f"{BN_TRAIN_TOL[dtype_name]:g} of max|plain|",
@@ -465,12 +482,13 @@ BN_KERNEL_NAMES = ("stats_partial", "bwd_reduce_partial", "finalize_partials", "
 CONV_NAMES = ("conv", "gemm", "sm90", "cutlass", "xmma", "cudnn", "implicit", "winograd")
 
 
-def phase_profile(torch, hyp="fb1", extra=()):
-    """One full-width step under torch.profiler, after a warm-up step outside
-    it: device time by kernel class, and the device's busy share (that
-    step's kernel time over the wall time of the next step, run without the
-    profiler; one stream, so kernels do not overlap); peak memory over the
-    three steps."""
+def phase_profile(torch, hyp="fb1", extra=(), base=FULL_WIDTH):
+    """One step of ``base`` (full width) under torch.profiler, after a
+    warm-up step outside it: device time by kernel class, and the device's
+    busy share (that step's kernel time over the wall time of the next step,
+    run without the profiler; one stream, so kernels do not overlap); peak
+    memory over the three steps. A stochastic recipe's step is its epoch of
+    SGD updates."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -478,23 +496,28 @@ def phase_profile(torch, hyp="fb1", extra=()):
     from fullbatchtraining_tpu_torch.models import construct_model
     from fullbatchtraining_tpu_torch.training import training
 
-    cfg = main_path_config(FULL_WIDTH + list(extra), hyp)
+    cfg = main_path_config(list(base) + list(extra), hyp)
     bundle = construct_databundle(cfg.data, cfg.impl, cfg.hyp, dryrun=cfg.dryrun, seed=cfg.seed)
     model = construct_model(cfg.model, bundle.channels, bundle.classes, seed=cfg.seed)
     training.configure_backends(cfg)
     trainer = training.Trainer(model, bundle, cfg, torch.device(DEVICE))
     state = training.TrainState(step=0, model=model,
                                 optimizer=training.make_optimizer(model, cfg.hyp))
+    step_fn = trainer.stochastic_step if cfg.hyp.train_stochastic else trainer.full_step
+
+    def step():
+        step_fn(state, *trainer.stage(state.step))
+
     torch.cuda.reset_peak_memory_stats()
-    trainer.full_step(state)
+    step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        trainer.full_step(state)
+        step()
         torch.cuda.synchronize()
         traced_ms = 1e3 * (time.time() - t0)
     t0 = time.time()
-    trainer.full_step(state)
+    step()
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.time() - t0)
     kernels = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
@@ -685,6 +708,294 @@ def regularizer_sizes(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the SGD baseline, shuffled epochs, SAM and checkpoints
+# ---------------------------------------------------------------------------
+
+SGD_BATCHES = (128, 32)   # hyp=base_sgd's blocks; the paper's "FB in practice" chunks
+SGD_EPOCH = ["hyp.warmup=0", "hyp.steps=1", "data.size=2048"]     # 16 updates, float32
+SGD_FULL = ["hyp.steps=2"]                                         # the yaml as it stands
+# Cuts of data size, not width, that keep the whole run near half its time
+# limit: the "FB in practice" step is host-bound at a fixed cost a chunk
+# (about 0.1 s), so 390 of its 1562 chunks; a whole traced epoch costs
+# minutes of the profiler's own work, so the profiled steps are shorter still
+FB_PRACTICE = ["data.batch_size=32", "hyp.shuffle=True", "hyp.steps=1", "hyp.warmup=0",
+               "impl.mixed_precision=True", "data.size=12_480"]   # hyp=gradreg, bf16
+SGD_PROFILED = ["data.size=6400"]           # 50 updates, not 390
+FB_PRACTICE_PROFILED = ["data.size=1024"]   # 32 chunks
+SGD_UPDATES, FB_PRACTICE_CHUNKS = 390, 390  # 50,000 images in blocks of 128; 12,480 in 32s
+KERNELS = ("stats", "bwd_reduce", "bwd_apply")
+
+
+def phase_kernels_small(torch, bn):
+    """8a: phase 2's check at the BN shapes of a block of 128 and a chunk of
+    32 images, float32 and bfloat16, same tolerances; the host's time to
+    issue a call (``host_ms``) beside each kernel's."""
+    rows = []
+    for images in SGD_BATCHES:
+        log(f"  chunk of {images} images:")
+        rows += phase_kernels(torch, bn, images)
+    host_bound = [r for r in rows if "host_ms" in r and r["host_ms"] >= r["ms"]]
+    log(f"  {len(host_bound)} of {sum('host_ms' in r for r in rows)} kernel calls take longer "
+        f"to issue than to run (host_ms >= ms)")
+    return rows
+
+
+SAM = "hyp/optim_modification=SAM"
+FLOAT64 = ["impl.dtype=float64", "impl.accumulation_dtype=float64"]
+F64_TOL = 1e-10        # float64: kernels and plain versions differ in summation order only
+CONTROL_EPS = 2.0 ** -20   # the control run's relative perturbation of the initial weights
+CONTROL_FACTOR = 10
+
+
+def sgd_epoch_run(torch, bn, extra, plain=False, perturb=0.0):
+    """One ``SGD_EPOCH`` through ``training.train``, on the kernels or the
+    plain versions, from the seed's weights, each multiplied by ``1 +-
+    perturb``. Returns (initial state dict, final state, stats)."""
+    import contextlib
+
+    from fullbatchtraining_tpu_torch.data import construct_databundle
+    from fullbatchtraining_tpu_torch.models import construct_model
+    from fullbatchtraining_tpu_torch.training import train
+
+    cfg = main_path_config(SGD_EPOCH + list(extra), "base_sgd")
+    bundle = construct_databundle(cfg.data, cfg.impl, cfg.hyp, seed=cfg.seed)
+    model = construct_model(cfg.model, bundle.channels, bundle.classes, seed=cfg.seed)
+    if perturb:
+        g = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_(1 + perturb * torch.randn(p.shape, generator=g).sign())
+    initial = copy.deepcopy(model.state_dict())
+    with bn.plain_versions() if plain else contextlib.nullcontext():
+        state, stats = train(model, bundle, cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    return initial, state, stats
+
+
+def block_gaps(stats, ref):
+    """Relative difference of each block's gradient norm, in update order."""
+    keys = sorted((k for k in ref if k.startswith("grad_norm_train_")),
+                  key=lambda k: int(k.rsplit("_", 1)[1]))
+    return [abs(stats[k][0] - ref[k][0]) / abs(ref[k][0]) for k in keys]
+
+
+def phase_sgd_epoch(torch, bn):
+    """8b: ``hyp=base_sgd`` epochs of 16 shuffled updates (2048 images in
+    blocks of 128), without and with SAM, on the kernels against
+    ``plain_versions()``; each block launches ``stats``, ``bwd_reduce`` and
+    ``bwd_apply`` once a BN layer, twice under SAM.
+
+    float32: the first update's gradient norm within phase 3's 1e-4. Later
+    updates start from params that differ, and a float32 trajectory is that
+    sensitive of itself: a plain-version run from weights off by
+    ``CONTROL_EPS`` diverges from the plain run as far. So each later
+    block's gap is logged beside that control's, and the largest must stay
+    within ``CONTROL_FACTOR`` times the control's largest.
+    float64: every block's gradient norm, the losses, the running stats and
+    the params (relative to the whole update) within ``F64_TOL``."""
+    result = {}
+    for name, extra in (("sgd", []), ("sam", [SAM])):
+        passes = 2 if name == "sam" else 1
+        bn.reset_counts()
+        _, _, kstats = sgd_epoch_run(torch, bn, extra)
+        counts = dict(bn.launches)
+        _, _, pstats = sgd_epoch_run(torch, bn, extra, plain=True)
+        _, _, cstats = sgd_epoch_run(torch, bn, extra, plain=True, perturb=CONTROL_EPS)
+        check(bn.launches == counts, "plain_versions() still launched kernels")
+        gaps, control = block_gaps(kstats, pstats), block_gaps(cstats, pstats)
+        blocks = len(gaps)
+        log(f"  {name} float32: launches {counts}")
+        log(f"    gradient norm of each update's block, kernels vs plain: "
+            + " ".join(f"{g:.1e}" for g in gaps))
+        log(f"    plain from weights off by {CONTROL_EPS:.1e}, vs plain:        "
+            + " ".join(f"{g:.1e}" for g in control))
+        check(all(counts[k] == passes * BN_LAYERS * blocks for k in KERNELS),
+              f"{name} epoch launches {counts}, expected {passes * BN_LAYERS * blocks} of "
+              f"each of {KERNELS}")
+        check(gaps[0] <= 1e-4, f"{name}: the first update's gradients differ by {gaps[0]:.2e}")
+        check(max(gaps) <= CONTROL_FACTOR * max(control),
+              f"{name}: kernels vs plain diverge by {max(gaps):.2e}, more than "
+              f"{CONTROL_FACTOR} x the control's {max(control):.2e}")
+
+        initial, kstate, kstats64 = sgd_epoch_run(torch, bn, extra + FLOAT64)
+        _, pstate, pstats64 = sgd_epoch_run(torch, bn, extra + FLOAT64, plain=True)
+        gaps64 = block_gaps(kstats64, pstats64)
+        losses = max(abs(kstats64[k][0] - pstats64[k][0]) / abs(pstats64[k][0])
+                     for k in ("train_loss", "full_loss", "valid_loss"))
+        ks, ps = ({k: v.double().cpu() for k, v in st.model.state_dict().items()}
+                  for st in (kstate, pstate))
+        params = max(((ks[k] - ps[k]).norm() / (ps[k] - initial[k]).norm().clamp_min(1e-300)
+                      ).item() for k in ps if "running" not in k)
+        running = max(((ks[k] - ps[k]).norm() / ps[k].norm().clamp_min(1e-300)).item()
+                      for k in ps if "running" in k)
+        log(f"  {name} float64: worst block gradient norm {max(gaps64):.1e}, losses {losses:.1e}, "
+            f"params {params:.1e} of the update, running stats {running:.1e} (tol {F64_TOL:g})")
+        check(max(max(gaps64), losses, params, running) <= F64_TOL,
+              f"{name}: float64 kernels and plain versions differ")
+        result[name] = {"launches": counts, "float32_gaps": gaps, "control_gaps": control,
+                        "float64": {"gaps": gaps64, "losses": losses, "params": params,
+                                    "running_stats": running}}
+    return result
+
+
+def phase_sgd_full_width(torch, bn):
+    """8c: ``hyp=base_sgd`` as its yaml has it through ``training.train``
+    (float32, shuffled, 50,000 images in blocks of 128), 2 steps of 390
+    updates: ``stats``, ``bwd_reduce`` and ``bwd_apply`` 20 x 390 a step,
+    ``apply`` that plus 20 x 79 an evaluation, all at 16 bytes a thread;
+    then the profile of an epoch cut to ``SGD_PROFILED``."""
+    from fullbatchtraining_tpu_torch.data import epoch_layout
+
+    bn.reset_counts()
+    cfg, bundle, _, _, stats = run_main_path(torch, SGD_FULL, "base_sgd")
+    counts, wide = dict(bn.launches), dict(bn.vector_launches)
+    blocks, _, sub = epoch_layout(bundle.size, bundle.batch_size, cfg.hyp.sub_batch)
+    evals, steps = len(stats["valid_loss"]), len(stats["train_loss"])
+    eval_blocks = -(-len(bundle.valid) // bundle.batch_size)
+    per_step = BN_LAYERS * blocks
+    result = {"step_s": stats["train_time"], "updates_per_step": blocks,
+              "images_per_s": [blocks * sub / t for t in stats["train_time"]],
+              "ms_per_update": [1e3 * t / blocks for t in stats["train_time"]],
+              "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "train_loss": stats["train_loss"], "valid_loss": stats["valid_loss"],
+              "valid_acc": stats["valid_acc"], "launches": counts, "vector_launches": wide,
+              "evals": evals}
+    for i, t in enumerate(stats["train_time"]):
+        log(f"  step {i + 1}: {t:.3f} s, {blocks} updates, {1e3 * t / blocks:.2f} ms an update, "
+            f"train loss {stats['train_loss'][i]:.4f}")
+    log(f"  valid loss {stats['valid_loss']}; peak memory {result['peak_memory_gib']:.2f} GiB; "
+        f"launches {counts}; at 16 bytes a thread {wide}")
+    check(steps == 2 and evals == 2 and blocks == SGD_UPDATES,
+          f"{steps} steps of {blocks} updates and {evals} evaluations, expected 2, "
+          f"{SGD_UPDATES} and 2")
+    for name in KERNELS:
+        check(counts[name] == per_step * steps,
+              f"{name}: {counts[name]} launches, expected {per_step} per step")
+    check(counts["apply"] == per_step * steps + BN_LAYERS * eval_blocks * evals,
+          f"apply: {counts['apply']} launches, expected {per_step} per step + "
+          f"{BN_LAYERS * eval_blocks} per evaluation")
+    check(wide == counts, f"launches {counts}, of them at 16 bytes a thread {wide}")
+    check(all(map(math.isfinite, stats["train_loss"] + stats["valid_loss"])), "non-finite loss")
+    log(f"  profile of an epoch cut to {SGD_PROFILED}:")
+    result["profile"] = phase_profile(torch, "base_sgd", SGD_PROFILED, base=SGD_FULL)
+    return result
+
+
+def phase_fb_practice(torch, bn, fb1):
+    """8d: the paper's "FB in practice" step, ``hyp=gradreg
+    data.batch_size=32 hyp.shuffle=True`` at full width, one bf16 step through
+    ``training.train`` on ``FB_PRACTICE``'s cut of the data: exactly 2 x 20
+    launches of ``stats``, ``bwd_reduce`` and ``bwd_apply`` a chunk, all at
+    16 bytes a thread; its busy share on a profiled step cut to
+    ``FB_PRACTICE_PROFILED``. Then
+    one shuffled ``hyp=fb1`` full-width step, whose launches equal phase
+    4's per step, and the time of its epoch gather."""
+    from fullbatchtraining_tpu_torch.data import construct_databundle, epoch_layout
+    from fullbatchtraining_tpu_torch.models import construct_model
+    from fullbatchtraining_tpu_torch.training import training
+
+    bn.reset_counts()
+    cfg, bundle, _, _, stats = run_main_path(torch, FB_PRACTICE, "gradreg")
+    counts, wide = dict(bn.launches), dict(bn.vector_launches)
+    blocks, chunks, sub = epoch_layout(bundle.size, bundle.batch_size, cfg.hyp.sub_batch)
+    result = {"step_s": stats["train_time"][0], "chunks": blocks * chunks,
+              "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "train_loss": stats["train_loss"], "valid_loss": stats["valid_loss"],
+              "launches": counts, "vector_launches": wide}
+    log(f"  step {result['step_s']:.3f} s over {blocks * chunks} chunks of {sub} "
+        f"({1e3 * result['step_s'] / (blocks * chunks):.2f} ms a chunk); train loss "
+        f"{stats['train_loss'][0]:.4f}, valid loss {stats['valid_loss'][0]:.4f}; peak memory "
+        f"{result['peak_memory_gib']:.2f} GiB; launches {counts}")
+    check(blocks * chunks == FB_PRACTICE_CHUNKS and sub == 32,
+          f"{blocks * chunks} chunks of {sub}")
+    for name in KERNELS:
+        check(counts[name] == 2 * BN_LAYERS * FB_PRACTICE_CHUNKS,
+              f"{name}: {counts[name]} launches, expected {2 * BN_LAYERS * FB_PRACTICE_CHUNKS}")
+    check(wide == counts, f"launches {counts}, of them at 16 bytes a thread {wide}")
+    check(all(map(math.isfinite, stats["train_loss"] + stats["valid_loss"])), "non-finite loss")
+    log(f"  profile of the step cut to {FB_PRACTICE_PROFILED}:")
+    result["profile"] = phase_profile(torch, "gradreg", FB_PRACTICE_PROFILED, base=FB_PRACTICE)
+
+    log("  one shuffled hyp=fb1 full-width step:")
+    bn.reset_counts()
+    cfg, bundle, _, _, stats = run_main_path(torch, FULL_WIDTH + ["hyp.steps=1",
+                                                                  "hyp.shuffle=True"])
+    counts = dict(bn.launches)
+    per_step = {k: fb1["launches"][k] // 3 for k in KERNELS}
+    eval_apply = (fb1["launches"]["apply"] - fb1["launches"]["stats"]) // fb1["evals"]
+    expected = {**per_step, "apply": per_step["stats"] + eval_apply}
+    check(counts == expected, f"shuffled fb1 step launches {counts}, phase 4's a step {expected}")
+    check(dict(bn.vector_launches) == counts, "a shuffled fb1 launch took narrow accesses")
+    model = construct_model(cfg.model, bundle.channels, bundle.classes, seed=cfg.seed)
+    trainer = training.Trainer(model, bundle, cfg, torch.device(DEVICE))
+    gather = {"ms": cuda_ms(torch, lambda: trainer.stage(1), iters=10),
+              "host_ms": host_ms(torch, lambda: trainer.stage(1), iters=10),
+              "bytes": 2 * trainer.images.numel()}
+    result["fb1_shuffled"] = {"step_s": stats["train_time"][0], "launches": counts,
+                              "gather": gather}
+    log(f"  shuffled fb1 step {stats['train_time'][0]:.3f} s, launches {counts} (phase 4's a "
+        f"step); epoch gather {gather['ms']:.3f} ms (host {gather['host_ms']:.3f} ms) for "
+        f"{gather['bytes'] / 1e6:.1f} MB read and written")
+    del trainer, model
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_resume(torch):
+    """8e: ``FP32_STEP`` with 2 steps and Nesterov momentum
+    (``hyp.scheduler=none``: the cut run has fewer ``hyp.steps``), straight
+    through and as 1 step saved by the async writer, then a fresh model
+    resumed to step 2: params, momentum buffers, running stats and stats
+    must be bitwise equal."""
+    import shutil
+
+    from fullbatchtraining_tpu_torch.data import construct_databundle
+    from fullbatchtraining_tpu_torch.models import construct_model
+    from fullbatchtraining_tpu_torch.training import train
+
+    folder = ROOT / "build" / "chip_smoke_resume"
+    shutil.rmtree(folder, ignore_errors=True)
+    folder.mkdir(parents=True)
+    file = folder / "checkpoints" / "resume.ckpt"
+
+    def run(steps, extra=()):
+        cfg = main_path_config(FP32_STEP + ["hyp.scheduler=none", f"hyp.steps={steps}",
+                                            *extra])
+        cfg.original_cwd = str(folder)
+        bundle = construct_databundle(cfg.data, cfg.impl, cfg.hyp, seed=cfg.seed)
+        model = construct_model(cfg.model, bundle.channels, bundle.classes, seed=cfg.seed)
+        state, stats = train(model, bundle, cfg, device=DEVICE)
+        torch.cuda.synchronize()
+        return state, stats
+
+    straight, straight_stats = run(2)
+    run(1, ["impl.checkpoint.name=resume.ckpt", "impl.checkpoint.async_save=True"])
+    saved = torch.load(file, map_location="cpu", weights_only=True)
+    check(saved["step"] == 1, f"the async checkpoint holds step {saved['step']}")
+    resumed, resumed_stats = run(2, ["impl.checkpoint.name=resume.ckpt"])
+    tensors = {**{f"model/{k}": v for k, v in straight.model.state_dict().items()},
+               **{f"momentum/{i}": s["momentum_buffer"]
+                  for i, s in enumerate(straight.optimizer.state.values())}}
+    theirs = {**{f"model/{k}": v for k, v in resumed.model.state_dict().items()},
+              **{f"momentum/{i}": s["momentum_buffer"]
+                 for i, s in enumerate(resumed.optimizer.state.values())}}
+    check(tensors.keys() == theirs.keys() and any(k.startswith("momentum") for k in tensors),
+          "the resumed run has other tensors or no momentum buffers")
+    differ = [k for k in tensors if not torch.equal(tensors[k], theirs[k])]
+    stats_differ = [k for k, v in resumed_stats.items()
+                    if k != "train_time" and v != straight_stats[k][1:]]
+    size_mb = file.stat().st_size / 1e6
+    shutil.rmtree(folder, ignore_errors=True)
+    log(f"  {len(tensors)} tensors (params, running stats, momentum buffers): "
+        f"{len(differ)} differ; stats of step 2 that differ: {stats_differ}; async checkpoint "
+        f"of {size_mb:.1f} MB loads at step {saved['step']}")
+    check(not differ, f"resumed tensors differ from the straight run's: {differ[:5]}")
+    check(not stats_differ, f"resumed stats differ: {stats_differ}")
+    return {"tensors": len(tensors), "differ": differ, "stats_differ": stats_differ,
+            "checkpoint_mb": size_mb}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write every measurement to this JSON file")
@@ -727,6 +1038,17 @@ def main() -> int:
     double_backward = phase_gradreg_fp32(torch, bn)
     log("[7] hyp=gradreg at full width: ResNet-18, 3 steps, bf16")
     gradreg = phase_gradreg_full_width(torch, bn, full)
+    log("[8a] kernels against their plain versions at blocks of 128 and chunks of 32 images")
+    small_rows = phase_kernels_small(torch, bn)
+    log("[8b] float32 hyp=base_sgd epoch (16 updates, shuffled), with and without SAM: "
+        "kernels against plain versions")
+    sgd_epoch = phase_sgd_epoch(torch, bn)
+    log("[8c] hyp=base_sgd at full width: 2 steps of 390 updates, float32")
+    sgd = phase_sgd_full_width(torch, bn)
+    log("[8d] hyp=gradreg data.batch_size=32 hyp.shuffle=True: 1 full-width bf16 step, 390 chunks")
+    fb_practice = phase_fb_practice(torch, bn, full)
+    log("[8e] resume from a checkpoint: bitwise equal to the straight run")
+    resume = phase_resume(torch)
 
     kernels = []
     for name in ("stats", "apply", "bwd_reduce", "bwd_apply"):
@@ -739,6 +1061,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
             "launches": full["launches"][name],
             "launches_gradreg": gradreg["forward-differences"]["launches"][name],
+            "launches_sgd": sgd["launches"][name],
+            "launches_fb_shuffle": fb_practice["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": "bytes", "library_ms": total("library_ms")})
@@ -751,7 +1075,8 @@ def main() -> int:
             {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
              "compiler": compiler, "kernel_rows": rows, "full_width": full, "profile": profile,
              "double_backward": double_backward, "gradreg": gradreg,
-             "kernels": kernels}, indent=1))
+             "small_kernel_rows": small_rows, "sgd_epoch": sgd_epoch, "sgd": sgd,
+             "fb_practice": fb_practice, "resume": resume, "kernels": kernels}, indent=1))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,8 +2,8 @@
 
 from .augmentations import crop_flip, draw_crop_flip, make_augment_fn, make_eval_transform, normalize
 from .datasets import ArrayDataset, construct_datasets
-from .pipeline import DataBundle, construct_databundle, epoch_layout, layout_epoch
+from .pipeline import DataBundle, construct_databundle, epoch_layout, epoch_order, layout_epoch
 
 __all__ = ["ArrayDataset", "DataBundle", "construct_datasets", "construct_databundle",
-           "crop_flip", "draw_crop_flip", "epoch_layout", "layout_epoch", "make_augment_fn",
-           "make_eval_transform", "normalize"]
+           "crop_flip", "draw_crop_flip", "epoch_layout", "epoch_order", "layout_epoch",
+           "make_augment_fn", "make_eval_transform", "normalize"]

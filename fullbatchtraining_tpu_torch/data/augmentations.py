@@ -67,7 +67,7 @@ def make_augment_fn(aug_cfg) -> Callable:
     if unknown:
         raise NotImplementedError(
             f"augmentations {sorted(unknown)} are not ported yet "
-            "(ROADMAP.md, 'Stochastic modes and baked data')")
+            "(ROADMAP.md, 'Baked data and semi-stochastic')")
     size, pad = crop_spec(aug_cfg["RandomCrop"]) if "RandomCrop" in aug_cfg else (None, 0)
     flip_p = float(aug_cfg.get("RandomHorizontalFlip", 0.0))
 

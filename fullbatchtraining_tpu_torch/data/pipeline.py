@@ -1,8 +1,10 @@
-"""Data bundle and epoch layout (``fullbatchtraining_tpu/data/pipeline.py``).
+"""Data bundle, epoch layout and epoch order (``fullbatchtraining_tpu/data/pipeline.py``,
+``training/training.py:_epoch_order``).
 
 The training set lives as one uint8 array; an optimizer step consumes it as
-``num_blocks x chunks x sub_batch`` samples in order (drop-last), and the
-trainer keeps it resident on the device.
+``num_blocks x chunks x sub_batch`` samples (drop-last), in order or, with
+``hyp.shuffle``, in the step's :func:`epoch_order`, and the trainer keeps it
+resident on the device.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ def construct_databundle(cfg_data, cfg_impl=None, cfg_hyp=None, dryrun: bool = F
     if cfg_data.db.name is not None:
         raise NotImplementedError(
             "data.db (baked N x datasets) is not ported yet "
-            "(ROADMAP.md, 'Stochastic modes and baked data')")
+            "(ROADMAP.md, 'Baked data and semi-stochastic')")
     train, valid = construct_datasets(cfg_data, dryrun=dryrun)
     return DataBundle(
         train=train,
@@ -94,3 +96,15 @@ def layout_epoch(images, labels, num_blocks: int, chunks: int, sub: int, num_dev
     images = images[:total].reshape(num_blocks, num_devices, chunks, sub, *images.shape[1:])
     labels = labels[:total].reshape(num_blocks, num_devices, chunks, sub)
     return images, labels
+
+
+def epoch_order(seed, step: int, n: int, with_replacement: bool = False) -> np.ndarray:
+    """The sample order of step ``step`` for ``hyp.shuffle=True``: a
+    permutation of ``n`` (or ``n`` draws with replacement, for
+    ``hyp.sample_with_replacement``) from numpy's ``default_rng(seed *
+    1_000_003 + step)``, the JAX package's generator, so both draw the same
+    order."""
+    rng = np.random.default_rng((seed if seed is not None else 0) * 1_000_003 + step)
+    if with_replacement:
+        return rng.integers(0, n, n)
+    return rng.permutation(n)

@@ -69,13 +69,16 @@ def make_optimizer(model: nn.Module, cfg_hyp) -> torch.optim.SGD:
     """``torch.optim.SGD`` for ``hyp.optim.name == 'Gradient Descent'``; with
     ``hyp.only_linear_layers_weight_decay`` the parameters whose name matches
     NO_WD_PATTERN form a group without weight decay. The lr is set per step
-    from the schedule."""
+    from the schedule. ``hyp.optim_modification`` may be SAM, which the
+    trainer applies; LARS and LARC raise."""
     optim = cfg_hyp.optim
     if optim.name != "Gradient Descent" or optim.get("line_search", "none") != "none":
         raise NotImplementedError(
             f"optimizer {optim.name!r} (line search {optim.get('line_search')!r}) is not "
             "ported yet (ROADMAP.md, 'Optimizer zoo')")
-    if cfg_hyp.optim_modification.name not in (None, "none"):
+    # SAM wraps the step (two gradients a step or a block, training.py), not
+    # the optimizer
+    if cfg_hyp.optim_modification.name not in (None, "none", "SAM"):
         raise NotImplementedError(
             f"optim_modification {cfg_hyp.optim_modification.name!r} is not ported yet "
             "(ROADMAP.md, 'Optimizer zoo')")

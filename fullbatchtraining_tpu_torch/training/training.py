@@ -1,7 +1,8 @@
-"""Full-batch training on one card (``fullbatchtraining_tpu/training/training.py``).
+"""Full-batch and stochastic training on one card
+(``fullbatchtraining_tpu/training/training.py``).
 
-One optimizer step averages the gradient of the whole training set, chunk by
-chunk, then applies the gradient modifiers and one SGD step:
+One full-batch optimizer step averages the gradient of the whole training
+set, chunk by chunk, then applies the gradient modifiers and one SGD step:
 
     with hyp.grad_reg.acc_strength: streaming mean of per-block gradients
     for each chunk (sub_batch samples, in epoch order):
@@ -13,6 +14,17 @@ chunk, then applies the gradient modifiers and one SGD step:
     norm bias, full-gradient clip, gradient noise
     SGD step at lr = schedule(step), EMA
 
+One stochastic step (``hyp.train_stochastic``, the SGD baseline) makes one
+SGD update per block at ``lr = schedule(step)``, each on the gradient of one
+forward over the block's ``chunks * sub`` images (regularized with no
+pre-pass, clipped to ``hyp.grad_clip`` in the 2-norm), then one EMA update.
+``hyp/optim_modification=SAM`` takes the update's gradient at
+``params + rho * g / ||g||``: a second block gradient in a stochastic step, a
+second full pass in a full-batch one. ``hyp.train_switch_stochastic`` inverts
+the mode from that step on. With ``hyp.shuffle`` each step reads the
+resident epoch in the order :func:`~..data.pipeline.epoch_order` draws for
+it, gathered on the device.
+
 These are the JAX package's semantics for one device with
 ``impl.block_grouping=1`` (its grouped scan is exact, so it computes the same
 thing). ``impl.mixed_precision`` runs the forward under bf16 autocast with
@@ -21,6 +33,7 @@ fp32 parameters and accumulators; logits are cast to the stat dtype.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import logging
@@ -33,10 +46,11 @@ from torch import nn
 from torch.func import functional_call
 
 from ..data.augmentations import normalize as normalize_images
-from ..data.pipeline import DataBundle, epoch_layout, layout_epoch
+from ..data.pipeline import DataBundle, epoch_layout, epoch_order, layout_epoch
 from ..models.modules import get_loss_fn
-from .grad_reg import make_grad_regularizer, tree_sqnorm
+from .grad_reg import make_grad_regularizer, tree_add_scaled, tree_sqnorm
 from .optimizers import make_lr_schedule, make_optimizer
+from .utils import CheckpointWriter, checkpoint_file, load_checkpoint
 
 log = logging.getLogger(__name__)
 
@@ -66,11 +80,7 @@ def check_slice(cfg) -> None:
     """Raise for modes the port does not run yet, naming their ROADMAP item."""
     hyp = cfg.hyp
     missing = [
-        (hyp.train_stochastic or hyp.train_switch_stochastic is not None
-         or hyp.train_semi_stochastic, "stochastic training modes",
-         "Stochastic modes and baked data"),
-        (hyp.shuffle, "hyp.shuffle=True", "Stochastic modes and baked data"),
-        (cfg.impl.checkpoint.name is not None, "checkpoints", "Checkpoints"),
+        (hyp.train_semi_stochastic, "hyp.train_semi_stochastic", "Baked data and semi-stochastic"),
         (cfg.impl.setup.dist, "distributed setup", "Data parallelism"),
         (cfg.analysis.type is not None, "analysis.type", "Analysis"),
         (cfg.analysis.save_model_every_nth_step is not None,
@@ -127,7 +137,8 @@ def status_message(stats, step):
 
 
 class Trainer:
-    """The step functions of one run: ``full_step`` and ``eval_step``."""
+    """The step functions of one run: ``full_step``, ``sam_step``,
+    ``stochastic_step`` and ``eval_step``, on the rows ``stage(step)`` gives."""
 
     def __init__(self, model: nn.Module, bundle: DataBundle, cfg, device):
         hyp, impl = cfg.hyp, cfg.impl
@@ -156,12 +167,42 @@ class Trainer:
         self.param_names = [name for name, _ in model.named_parameters()]
         self.params = list(model.parameters())
         self.reg_fn = make_grad_regularizer(hyp.grad_reg, self.regrad)
+        self.sam_rho = (float(hyp.optim_modification.rho)
+                        if hyp.optim_modification.name == "SAM" else None)
 
-        # the epoch stays resident on the device as uint8, one row per chunk
-        images, labels = layout_epoch(bundle.train.images, bundle.train.labels,
-                                      self.num_blocks, self.chunks, self.sub)
-        self.images = torch.from_numpy(np.ascontiguousarray(images)).to(device).flatten(0, 2)
-        self.labels = torch.from_numpy(labels).long().to(device).flatten(0, 2)
+        # The epoch stays resident on the device as uint8: in order, one row
+        # per chunk; shuffled, as the flat [N, H, W, C] set that stage()
+        # gathers from in each step's order
+        self.shuffle = bool(hyp.shuffle)
+        images, labels = bundle.train.images, bundle.train.labels
+        if self.shuffle:
+            limit = int(impl.get("device_shuffle_max_bytes", 8 << 30))
+            if images.nbytes > limit:
+                raise NotImplementedError(
+                    f"a shuffled epoch of {images.nbytes} bytes, above "
+                    f"impl.device_shuffle_max_bytes={limit}, is not ported yet "
+                    "(ROADMAP.md, 'Streamed epochs and other datasets')")
+            self.images = torch.from_numpy(np.ascontiguousarray(images)).to(device)
+            self.labels = torch.from_numpy(np.asarray(labels)).long().to(device)
+        else:
+            images, labels = layout_epoch(images, labels, self.num_blocks, self.chunks, self.sub)
+            self.images = torch.from_numpy(np.ascontiguousarray(images)).to(device).flatten(0, 2)
+            self.labels = torch.from_numpy(labels).long().to(device).flatten(0, 2)
+
+    def stage(self, step: int):
+        """``(images, labels)`` of step ``step``, one row of ``sub`` samples a
+        chunk: the fixed rows in order, or the step's order gathered from the
+        resident epoch (only the order, int64, goes to the device)."""
+        if not self.shuffle:
+            return self.images, self.labels
+        hyp = self.cfg.hyp
+        total = self.num_blocks * self.chunks * self.sub
+        order = epoch_order(self.cfg.seed, step, len(self.images),
+                            bool(hyp.get("sample_with_replacement", False)))
+        idx = torch.from_numpy(order[:total]).to(self.device)
+        rows = self.num_blocks * self.chunks
+        return (self.images.index_select(0, idx).view(rows, self.sub, *self.images.shape[1:]),
+                self.labels.index_select(0, idx).view(rows, self.sub))
 
     # -- inputs and forward -------------------------------------------------
     def _normalize(self, images):
@@ -203,50 +244,58 @@ class Trainer:
         torch._foreach_add_(avg, diff)
         return was_clipped
 
-    def pre_gradient(self, gen):
-        """The ``hyp.grad_reg.acc_strength`` pre-pass: streaming mean of the
-        gradients of whole blocks (one forward over ``chunks * sub`` images
-        each) at the step's parameters, with the step's running stats, whose
-        updates it discards. Its augmentations are drawn from the step's
-        generator ``gen``, before those of the main pass."""
+    def block(self, images, labels, bidx: int, gen):
+        """Block ``bidx`` of the staged rows, flat, augmented from ``gen``
+        and normalized: ``(x, labels)``."""
+        rows = slice(bidx * self.chunks, (bidx + 1) * self.chunks)
+        images, labels = images[rows].flatten(0, 1), labels[rows].flatten(0, 1)
+        if self.bundle.augmentations_active:
+            images = self.bundle.augment(images, gen)
+        return self._normalize(images), labels
+
+    def pre_gradient(self, gen, images, labels):
+        """The ``hyp.grad_reg.acc_strength`` pre-pass over the staged rows:
+        streaming mean of the gradients of whole blocks (one forward over
+        ``chunks * sub`` images each) at the step's parameters, with the
+        step's running stats, whose updates it discards. Its augmentations
+        are drawn from the step's generator ``gen``, before those of the main
+        pass."""
         avg = [torch.zeros_like(p, dtype=self.acc_dtype) for p in self.params]
         for bidx in range(self.num_blocks):
-            rows = slice(bidx * self.chunks, (bidx + 1) * self.chunks)
-            images, labels = self.images[rows].flatten(0, 1), self.labels[rows].flatten(0, 1)
-            if self.bundle.augmentations_active:
-                images = self.bundle.augment(images, gen)
-            grads = self.regrad(self.params, self._normalize(images), labels)
-            self._add_to_mean(avg, grads, bidx + 1)
+            x, lbls = self.block(images, labels, bidx, gen)
+            self._add_to_mean(avg, self.regrad(self.params, x, lbls), bidx + 1)
         return avg
 
     # -- one full-batch step --------------------------------------------------
-    def accumulate(self, model, gen, lr):
-        """Streaming mean of the chunk gradients over the epoch, BN stats
-        carried along, each chunk's gradient regularized at learning rate
-        ``lr``. Returns (avg grads, metrics, squared chunk norms)."""
+    def accumulate(self, model, gen, lr, images, labels):
+        """Streaming mean of the chunk gradients over the staged rows
+        ``images``, ``labels``, BN stats carried along, each chunk's gradient
+        regularized at learning rate ``lr``. Returns (avg grads, metrics,
+        squared chunk norms)."""
         hyp = self.cfg.hyp
         model.train()
-        pre_grads = self.pre_gradient(gen) if hyp.grad_reg.acc_strength != 0 else None
+        pre_grads = (self.pre_gradient(gen, images, labels)
+                     if hyp.grad_reg.acc_strength != 0 else None)
         avg = [torch.zeros_like(p, dtype=self.acc_dtype) for p in self.params]
         sloss = torch.zeros((), dtype=self.stat_dtype, device=self.device)
         spreds = torch.zeros((), dtype=self.stat_dtype, device=self.device)
         sq_norms, clipped = [], []
         for cidx in range(self.num_blocks * self.chunks):
-            images, labels = self.images[cidx], self.labels[cidx]
+            chunk, lbls = images[cidx], labels[cidx]
             if self.bundle.augmentations_active:
-                images = self.bundle.augment(images, gen)
-            x = self._normalize(images)
+                chunk = self.bundle.augment(chunk, gen)
+            x = self._normalize(chunk)
             logits = self.forward(model, x)
-            loss = self.criterion(logits, labels)
+            loss = self.criterion(logits, lbls)
             grads = torch.autograd.grad(loss, self.params)
             sq_norms.append(tree_sqnorm(grads))
             if self.reg_fn is not None:
-                grads = self.reg_fn(grads, self.params, x, labels, pre_grads, lr)
+                grads = self.reg_fn(grads, self.params, x, lbls, pre_grads, lr)
             was_clipped = self._add_to_mean(avg, grads, cidx + 1)
             if was_clipped is not None:
                 clipped.append(was_clipped.to(torch.float32))
             sloss = sloss + loss.detach() / self.chunks
-            spreds = spreds + (logits.argmax(-1) == labels).to(self.stat_dtype).sum()
+            spreds = spreds + (logits.argmax(-1) == lbls).to(self.stat_dtype).sum()
 
         sq_norms = torch.stack(sq_norms)
         param_norm = tree_sqnorm([p.detach() for p in self.params])
@@ -293,29 +342,142 @@ class Trainer:
                      for g in grads]
         return grads, metrics
 
-    def full_step(self, state: TrainState):
-        """One optimizer step on the full-batch gradient; returns metrics as
-        device scalars plus the per-chunk gradient norms."""
+    def gradient_eval(self, state: TrainState, images, labels):
+        """The modified full-batch gradient at the model's params, from the
+        step's generator; the running stats carry on through the pass.
+        Returns (grads, metrics, squared chunk norms)."""
         lr = self.schedule(state.step)
         gen = self.generator(state.step)
-        grads, metrics, sq_norms = self.accumulate(state.model, gen, lr)
+        grads, metrics, sq_norms = self.accumulate(state.model, gen, lr, images, labels)
         grads, metrics = self.modify_gradient(grads, gen, metrics)
-        for group in state.optimizer.param_groups:
+        return grads, metrics, sq_norms
+
+    def sgd_update(self, optimizer, grads, lr) -> None:
+        for group in optimizer.param_groups:
             group["lr"] = lr
         for p, g in zip(self.params, grads):
             p.grad = g.to(p.dtype)
-        state.optimizer.step()
-        state.optimizer.zero_grad(set_to_none=True)
+        optimizer.step()
+        optimizer.zero_grad(set_to_none=True)
+
+    def ema_update(self, state: TrainState) -> None:
         if state.ema_model is not None:
             m = self.cfg.hyp.eval_ema_momentum
             with torch.no_grad():
                 for e, t in zip(state.ema_model.state_dict().values(),
                                 state.model.state_dict().values()):
                     e.copy_(m * e + (1 - m) * t)
+
+    def full_step(self, state: TrainState, images, labels):
+        """One optimizer step on the full-batch gradient of the staged rows;
+        returns metrics as device scalars plus the per-chunk gradient norms."""
+        lr = self.schedule(state.step)
+        grads, metrics, sq_norms = self.gradient_eval(state, images, labels)
+        self.sgd_update(state.optimizer, grads, lr)
+        self.ema_update(state)
         state.step += 1
         metrics["lr"] = lr
         metrics["grad_norms_per_chunk"] = torch.sqrt(sq_norms)
         return metrics
+
+    @contextlib.contextmanager
+    def params_at(self, values):
+        """The model's params hold ``values`` inside the block and their own
+        values again after it (copies, so the restore is exact)."""
+        with torch.no_grad():
+            saved = [p.detach().clone() for p in self.params]
+            for p, v in zip(self.params, values):
+                p.copy_(v)
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for p, v in zip(self.params, saved):
+                    p.copy_(v)
+
+    def sam_step(self, state: TrainState, images, labels):
+        """One full-batch SAM step (``training/opt/sam.py``): the modified
+        gradient ``g`` at the params, then the modified gradient at
+        ``params + rho * g / ||g||``, whose pass carries on from the first
+        one's running stats; SGD steps on that second gradient from the
+        original params. Metrics are the second pass's; no per-chunk norms."""
+        lr = self.schedule(state.step)
+        grads, _, _ = self.gradient_eval(state, images, labels)
+        norm = torch.sqrt(tree_sqnorm(grads))
+        params = [p.detach() for p in self.params]
+        with self.params_at(tree_add_scaled(params, grads, self.sam_rho / (norm + 1e-12))):
+            grads, metrics, _ = self.gradient_eval(state, images, labels)
+        self.sgd_update(state.optimizer, grads, lr)
+        self.ema_update(state)
+        state.step += 1
+        metrics["lr"] = lr
+        return metrics
+
+    # -- one stochastic step ----------------------------------------------------
+    def block_grads(self, params, x, labels, lr):
+        """The SGD update's gradient of one block: one train-mode forward over
+        the whole block at ``params`` (a list in ``self.params`` order), which
+        updates the model's running stats; the regularizer with no pre-pass;
+        ``hyp.grad_clip`` in the 2-norm. Returns (grads, loss, correct,
+        squared norm before the regularizer)."""
+        hyp = self.cfg.hyp
+        state = dict(zip(self.param_names, params))
+        logits = self.forward(lambda inputs: functional_call(self.model, state, (inputs,)), x)
+        loss = self.criterion(logits, labels)
+        grads = torch.autograd.grad(loss, params)
+        sq_norm = tree_sqnorm(grads)
+        if self.reg_fn is not None:
+            grads = self.reg_fn(grads, params, x, labels, None, lr)
+        if hyp.grad_clip is not None:
+            grads, _, _ = tree_clip_by_norm(grads, hyp.grad_clip, 2)
+        correct = (logits.argmax(-1) == labels).to(self.stat_dtype).sum()
+        return grads, loss.detach(), correct, sq_norm
+
+    def stochastic_step(self, state: TrainState, images, labels):
+        """One epoch of SGD, one update per block of the staged rows, all at
+        ``lr = schedule(step)``; under SAM each update takes its gradient at
+        ``params + rho * g / ||g||``, a second pass over the block that
+        carries on from the first one's running stats. One EMA update after
+        the epoch. Metrics as ``full_step``'s, with one gradient norm per
+        block and no clipping count."""
+        hyp = self.cfg.hyp
+        lr = self.schedule(state.step)
+        gen = self.generator(state.step)
+        state.model.train()
+        sloss = torch.zeros((), dtype=self.stat_dtype, device=self.device)
+        spreds = torch.zeros((), dtype=self.stat_dtype, device=self.device)
+        sq_norms = []
+        for bidx in range(self.num_blocks):
+            x, lbls = self.block(images, labels, bidx, gen)
+            grads, loss, correct, sq_norm = self.block_grads(self.params, x, lbls, lr)
+            if self.sam_rho is not None:
+                norm = torch.sqrt(tree_sqnorm(grads))
+                perturbed = tree_add_scaled([p.detach() for p in self.params], grads,
+                                            self.sam_rho / (norm + 1e-12))
+                grads, _, _, _ = self.block_grads([p.requires_grad_() for p in perturbed],
+                                                  x, lbls, lr)
+            self.sgd_update(state.optimizer, grads, lr)
+            sloss = sloss + loss
+            spreds = spreds + correct
+            sq_norms.append(sq_norm)
+        self.ema_update(state)
+        state.step += 1
+
+        sq_norms = torch.stack(sq_norms)
+        param_norm = tree_sqnorm([p.detach() for p in self.params])
+        full_loss = sloss / self.num_blocks + 0.5 * self.weight_decay * param_norm
+        if hyp.grad_reg.block_strength != 0:
+            full_loss = full_loss + lr / 4 * hyp.grad_reg.block_strength * sq_norms.mean()
+        return {
+            "train_loss": sloss / self.num_blocks,
+            "train_acc": spreds / (self.num_blocks * self.chunks * self.sub),
+            "param_norm": param_norm,
+            "grad_norm": torch.sqrt(sq_norms.mean()),
+            "full_loss": full_loss,
+            "clipped_batches": torch.zeros((), device=self.device),
+            "lr": lr,
+            "grad_norms_per_chunk": torch.sqrt(sq_norms),
+        }
 
     # -- evaluation ------------------------------------------------------------
     @torch.no_grad()
@@ -365,22 +527,49 @@ def configure_backends(cfg) -> None:
 
 
 def train(model: nn.Module, bundle: DataBundle, cfg, device="cuda", stats=None):
-    """Train ``model`` from its current weights per ``cfg.hyp``/``cfg.impl``.
+    """Train ``model`` from its current weights per ``cfg.hyp``/``cfg.impl``,
+    or from the checkpoint ``impl.checkpoint.name`` where one exists.
 
     Returns ``(state, stats)``: the final :class:`TrainState` and the stats
-    dict of lists (the JAX package's keys, ``grad_norm_train_{i}`` per chunk)."""
+    dict of lists (the JAX package's keys, ``grad_norm_train_{i}`` per chunk
+    or, in a stochastic step, per block)."""
     device = resolve_device(device)
     check_slice(cfg)
     configure_backends(cfg)
     trainer = Trainer(model, bundle, cfg, device)
     state = TrainState(step=0, model=model, optimizer=make_optimizer(model, cfg.hyp),
                        ema_model=copy.deepcopy(model) if cfg.hyp.evaluate_ema else None)
-    val_data = stage_validation(bundle, bundle.batch_size, device, dryrun=cfg.dryrun)
-    stats = stats if stats is not None else defaultdict(list)
+    writer = None
+    if cfg.impl.checkpoint.name is not None:
+        writer = CheckpointWriter(checkpoint_file(cfg),
+                                  bool(cfg.impl.checkpoint.get("async_save", False)))
+        load_checkpoint(state, writer.file, cfg.hyp.steps)
+    try:
+        return _train_loop(trainer, state, bundle, cfg, writer,
+                           stats if stats is not None else defaultdict(list))
+    finally:
+        if writer is not None:
+            writer.close()  # the last checkpoint is on disk when train() returns
 
-    while state.step < cfg.hyp.steps:
+
+def _train_loop(trainer: Trainer, state: TrainState, bundle: DataBundle, cfg, writer, stats):
+    hyp = cfg.hyp
+    val_data = stage_validation(bundle, bundle.batch_size, trainer.device, dryrun=cfg.dryrun)
+    while state.step < hyp.steps:
         t0 = time.time()
-        metrics = _to_host(trainer.full_step(state))
+        # the configured mode before hyp.train_switch_stochastic, the other
+        # from it on (the JAX package's condition, not the reference's latch)
+        stochastic = hyp.train_stochastic
+        if hyp.train_switch_stochastic is not None and state.step >= hyp.train_switch_stochastic:
+            stochastic = not hyp.train_stochastic
+        images, labels = trainer.stage(state.step)
+        if stochastic:
+            metrics = trainer.stochastic_step(state, images, labels)
+        elif trainer.sam_rho is not None:
+            metrics = trainer.sam_step(state, images, labels)
+        else:
+            metrics = trainer.full_step(state, images, labels)
+        metrics = _to_host(metrics)
         step = state.step
         for k, v in metrics.items():
             if k == "grad_norms_per_chunk":
@@ -392,7 +581,7 @@ def train(model: nn.Module, bundle: DataBundle, cfg, device="cuda", stats=None):
 
         eval_model = state.ema_model if state.ema_model is not None else state.model
         if ((step - 1) % cfg.impl.validate_every_nth_step == 0
-                or step >= cfg.hyp.steps or cfg.dryrun):
+                or step >= hyp.steps or cfg.dryrun):
             vm = _to_host(trainer.eval_step(eval_model, *val_data))
             stats["valid_loss"] += [vm["valid_loss"]]
             stats["valid_acc"] += [vm["valid_acc"]]
@@ -402,14 +591,17 @@ def train(model: nn.Module, bundle: DataBundle, cfg, device="cuda", stats=None):
         if not np.isfinite(stats["train_loss"][-1]):
             log.info("Terminating iterations due to divergence of loss...")
             break
-        if cfg.hyp.stop_at_full_training_accuracy > 0:
-            last_n = stats["train_acc"][-cfg.hyp.stop_at_full_training_accuracy:]
+        if hyp.stop_at_full_training_accuracy > 0:
+            last_n = stats["train_acc"][-hyp.stop_at_full_training_accuracy:]
             if min(last_n) == 1:
                 log.info("Terminating training after fitting all datapoints.")
                 vm = _to_host(trainer.eval_step(eval_model, *val_data))
                 stats["valid_loss"] += [vm["valid_loss"]]
                 stats["valid_acc"] += [vm["valid_acc"]]
                 break
+        if writer is not None and ((step - 1) % cfg.impl.checkpoint.save_every_nth_step == 0
+                                   or step >= hyp.steps):
+            writer.save(state)
         if cfg.dryrun:
             break
     return state, stats

@@ -79,18 +79,32 @@ def test_cli_dryrun(device, tmp_path):
         assert "torch.cuda.is_available() is False" in run.stderr
 
 
+def test_cli_dryrun_default_recipe(tmp_path):
+    """With no ``hyp=`` override the CLI runs ``config/cfg.yaml``'s default,
+    ``hyp=base_sgd``: stochastic, shuffled SGD."""
+    args = [a for a in TINY if not a.startswith("hyp=")] + [f"base_dir={tmp_path}",
+                                                            "+impl.device=cpu"]
+    run = subprocess.run([sys.executable, "-m", "fullbatchtraining_tpu_torch", *args],
+                         cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stdout + run.stderr
+    assert "template_name: baseline" in run.stdout and "train_stochastic: true" in run.stdout
+    assert "Final validation accuracy" in run.stdout
+
+
 BOUNDARIES = {
-    "stochastic": ["hyp.train_stochastic=True"],
-    "shuffle": ["hyp.shuffle=True"],
+    "lars": ["hyp/optim_modification=LARS"],
+    "larc": ["hyp/optim_modification=LARC"],
     "semi-stochastic": ["hyp.train_semi_stochastic=True"],
-    "checkpoint": ["impl.checkpoint.name=run.ckpt"],
+    "fista": ["hyp/optim=fista"],
+    # the shuffled epoch stays on the card whole; a larger one would stream
+    "shuffle-over-budget": ["hyp.shuffle=True", "impl.device_shuffle_max_bytes=1"],
     "distributed": ["impl/setup=distributed"],
     "analysis": ["analysis=full"],
     "trace": ["impl.trace=True"],
     "float16-compute": ["impl.compute_dtype=float16"],
     "float16-params": ["impl.dtype=float16"],
     "adam": ["hyp/optim=adam"],
-    "sam": ["hyp/optim_modification=SAM"],
+    "vgg": ["model=vgg11"],
     "densenet": ["model=densenet121"],
     "groupnorm": ["model.normalization=GroupNorm"],
     "baked-db": ["data/db=baked"],

@@ -5,7 +5,9 @@ Marked ``gpu``: they skip where CUDA is absent. Run them on a card with
     python -m pytest -m gpu tests/test_torch_kernels_gpu.py
 
 Shapes are ResNet-18's BN inputs at a small batch (stage 1 and 4) plus two
-with ragged row counts and channel counts of 96 and 40. Every kernel also runs at the edges of its two widths (16 bytes a
+with ragged row counts and channel counts of 96 and 40, and (``SGD_SHAPES``)
+its four stages at ``hyp=base_sgd``'s blocks of 128 images and the paper's
+chunks of 32. Every kernel also runs at the edges of its two widths (16 bytes a
 thread, or one element): a channel count below, across and above one
 256-thread block's row, one that no 16-byte group divides, one row, a ragged
 row count, and an operand 1 element off 16-byte alignment; the reductions
@@ -24,6 +26,8 @@ from fullbatchtraining_tpu_torch.ops import bn
 pytestmark = pytest.mark.gpu
 
 SHAPES = [(8 * 1024, 64), (8 * 16, 512), (1000, 96), (333, 40)]
+SGD_SHAPES = [(b * hw, c) for b in (128, 32) for hw, c in ((1024, 64), (256, 128), (64, 256),
+                                                           (16, 512))]
 EDGE_C = [3, 12, 64, 520, 4096]
 EDGE_M = [1, 333, 16 * 512]
 DTYPES = [torch.float32, torch.bfloat16, torch.float64]
@@ -76,7 +80,7 @@ def _assert_elementwise_close(ours, ref, magnitude, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("shape", SHAPES + SGD_SHAPES, ids=str)
 def test_reductions_match_plain(cuda, shape, dtype):
     x = _data(shape, dtype, cuda, 0)
     dy = _data(shape, dtype, cuda, 1)
@@ -96,7 +100,7 @@ def test_reductions_match_plain(cuda, shape, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("shape", SHAPES + SGD_SHAPES, ids=str)
 def test_elementwise_match_plain(cuda, shape, dtype):
     x = _data(shape, dtype, cuda, 2)
     dy = _data(shape, dtype, cuda, 3)
@@ -254,3 +258,32 @@ def test_forward_differences_on_the_kernels_matches_plain(cuda):
     assert bn.launches == counts
     for o, r in zip(ours, ref):
         torch.testing.assert_close(o, r, rtol=1e-9, atol=1e-9 * r.abs().max().item())
+
+
+def test_stochastic_step_launches_a_kernel_per_layer_and_block(cuda):
+    """One ``hyp=base_sgd`` step (ResNet-18 at width 8, 512 shuffled images in
+    4 blocks of 128) through ``train()`` on the card: ``stats``,
+    ``bwd_reduce`` and ``bwd_apply`` launch once a BN layer a block, ``apply``
+    that plus once a layer an evaluation block, all at 16 bytes a thread."""
+    from pathlib import Path
+
+    from fullbatchtraining_tpu_torch.config import load_config
+    from fullbatchtraining_tpu_torch.data import construct_databundle
+    from fullbatchtraining_tpu_torch.models import construct_model
+    from fullbatchtraining_tpu_torch.training import train
+
+    root = Path(__file__).resolve().parent.parent
+    cfg = load_config(root / "config", overrides=[
+        "model=resnet18", "model.width=8", "hyp=base_sgd", "data.size=512", "hyp.steps=1",
+        "hyp.warmup=0", f"data.path={root / 'build' / 'no_data'}", "seed=0"])
+    bundle = construct_databundle(cfg.data)
+    model = construct_model(cfg.model, bundle.channels, bundle.classes)
+    bn.reset_counts()
+    _, stats = train(model, bundle, cfg, device="cuda")
+    torch.cuda.synchronize()
+    blocks, eval_blocks = 512 // 128, -(-len(bundle.valid) // 128)
+    assert len(stats["grad_norm_train_3"]) == 1 and "grad_norm_train_4" not in stats
+    assert {k: bn.launches[k] for k in ("stats", "bwd_reduce", "bwd_apply")} == dict.fromkeys(
+        ("stats", "bwd_reduce", "bwd_apply"), 20 * blocks)
+    assert bn.launches["apply"] == 20 * blocks + 20 * eval_blocks
+    assert bn.vector_launches == bn.launches
