@@ -59,12 +59,27 @@ Phases, in order; any failure exits non-zero before the result lines:
    chunks; one shuffled
    ``hyp=fb1`` step with phase 4's launches and its epoch gather time. (e) A
    run resumed from an async checkpoint, bitwise equal to the straight run.
+9. The baked 10x CIFAR store (``data/db=baked data.augmentations_train=
+   data.db.rounds=10``, a temporary store under ``build/``). (a) The bake of
+   50,000 images: its time and rate, shape and meta, each round's labels in
+   its recomputed order, 512 sampled images a round each one of its
+   source's 162 crop/flip windows, the augmentation on the card. (b)
+   ``fb_10_1``: one ``hyp=fb1`` step over the 500,000 images as phase 4
+   runs it, phase 4's launches a chunk, the store's upload time, peak
+   memory. (c) ``SGD_10_CIFAR``: ``hyp=base_sgd
+   hyp.train_semi_stochastic=True``, 2 steps (rounds 0 and 1) with phase
+   8c's launches, each step's staged rows bitwise the host gather of its
+   round in its order, the gather's time. (d) Phase 3 on a float32
+   semi-stochastic ``hyp=fb1`` step over a 2-round store of 8,192 images a
+   round. (e) The host path (the store above
+   ``impl.device_shuffle_max_bytes``) stages bitwise the rows of (c).
 
 The last lines are the card line, a JSON object of per-kernel numbers (their
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` sum the 20 BN layers of
 one bf16 chunk of 2048 images; ``launches`` counts phase 4,
-``launches_gradreg`` phase 7, ``launches_sgd`` phase 8c and
-``launches_fb_shuffle`` phase 8d), and ``{"ok": true, "device": {...}}``.
+``launches_gradreg`` phase 7, ``launches_sgd`` phase 8c,
+``launches_fb_shuffle`` phase 8d and ``launches_baked`` phase 9b), and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -354,7 +369,8 @@ def run_main_path(torch, extra, hyp="fb1"):
     from fullbatchtraining_tpu_torch.training import train
 
     cfg = main_path_config(extra, hyp)
-    bundle = construct_databundle(cfg.data, cfg.impl, cfg.hyp, dryrun=cfg.dryrun, seed=cfg.seed)
+    bundle = construct_databundle(cfg.data, cfg.impl, cfg.hyp, dryrun=cfg.dryrun, seed=cfg.seed,
+                                  device=DEVICE)
     model = construct_model(cfg.model, bundle.channels, bundle.classes, seed=cfg.seed)
     initial = copy.deepcopy(model.state_dict())
     torch.cuda.reset_peak_memory_stats()
@@ -393,7 +409,9 @@ def kernels_against_plain_step(torch, bn, hyp="fb1", extra=()):
     with bn.plain_versions():
         _, _, _, pstate, pstats = run_main_path(torch, FP32_STEP + list(extra), hyp)
     check(bn.launches == counts, "plain_versions() still launched kernels")
-    blocks, chunks, _ = epoch_layout(bundle.size, bundle.batch_size, cfg.hyp.sub_batch)
+    size = (bundle.baked.meta["size"] if cfg.hyp.train_semi_stochastic and bundle.baked
+            else bundle.size)  # a semi-stochastic step reads one round
+    blocks, chunks, _ = epoch_layout(size, bundle.batch_size, cfg.hyp.sub_batch)
     log(f"  launches (kernel run): {counts}; double backwards {doubles}")
     for key, tol in STEP_TOLS[hyp]:
         a, b = kstats[key][-1], pstats[key][-1]
@@ -424,8 +442,8 @@ def kernels_against_plain_step(torch, bn, hyp="fb1", extra=()):
     return counts, doubles, blocks * chunks
 
 
-def phase_fp32_step(torch, bn):
-    counts, _, chunks = kernels_against_plain_step(torch, bn)
+def phase_fp32_step(torch, bn, extra=()):
+    counts, _, chunks = kernels_against_plain_step(torch, bn, extra=extra)
     check(all(counts[k] == BN_LAYERS * chunks for k in ("stats", "bwd_reduce", "bwd_apply")),
           f"fp32 step launches {counts}, expected {BN_LAYERS * chunks} per kernel")
 
@@ -455,7 +473,7 @@ def phase_full_width(torch, bn, hyp="fb1", passes=1):
         "train_loss": stats["train_loss"], "train_acc": stats["train_acc"],
         "valid_loss": stats["valid_loss"], "valid_acc": stats["valid_acc"],
         "launches": counts, "vector_launches": wide, "layout_copies": copies, "evals": evals,
-        "wall_s": wall,
+        "chunks_per_step": blocks * chunks, "wall_s": wall,
     }
     for i, t in enumerate(stats["train_time"]):
         log(f"  step {i + 1}: {t:.3f} s, {images / t:.0f} images/s, "
@@ -996,6 +1014,235 @@ def phase_resume(torch):
             "checkpoint_mb": size_mb}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the baked 10x CIFAR store, semi-stochastic rounds
+# ---------------------------------------------------------------------------
+
+BAKED_DIR = ROOT / "build" / "chip_smoke_baked"
+BAKE_ROUNDS = 10
+# the train.sh lines' store, temporary: the run removes it
+BAKED = ["data/db=baked", "data.augmentations_train=", f"data.db.rounds={BAKE_ROUNDS}",
+         f"data.db.path={BAKED_DIR}", "data.db.temporary_database=True"]
+SEMI = ["hyp.train_semi_stochastic=True"]
+BAKED_FP32 = BAKED + ["data.db.rounds=2"] + SEMI   # with FP32_STEP: 2 rounds of 8192
+BAKE_SAMPLES = 512    # images a round checked against their crop/flip windows
+BAKE_PAD, BAKE_SIZE = 4, 32   # config/data/db/baked.yaml: RandomCrop [32, 4], flip 0.5
+
+
+def is_window(torch, images, sources, pad=BAKE_PAD):
+    """Per image: is it one of its source's ``(2 pad + 1)^2`` crop windows
+    of the zero-padded source, or their mirror images (162 at pad 4)?"""
+    padded = torch.nn.functional.pad(sources, (0, 0, pad, pad, pad, pad))
+    size = sources.shape[1]
+    found = torch.zeros(len(images), dtype=torch.bool, device=images.device)
+    for y in range(2 * pad + 1):
+        for x in range(2 * pad + 1):
+            crop = padded[:, y:y + size, x:x + size]
+            for window in (crop, crop.flip(2)):
+                found |= (window == images).flatten(1).all(1)
+    return found
+
+
+def phase_bake(torch):
+    """9a: bake ``BAKED``'s store from the synthetic CIFAR-10 training set
+    through ``bake_dataset`` (which ``construct_databundle`` calls) and check
+    it."""
+    import atexit
+    import shutil
+
+    import numpy as np
+
+    from fullbatchtraining_tpu_torch.data import augmentations, baked, construct_datasets
+
+    atexit.register(shutil.rmtree, BAKED_DIR, True)
+    cfg = main_path_config(FULL_WIDTH + BAKED)
+    train, _ = construct_datasets(cfg.data)
+    devices = set()
+    crop_flip = augmentations.crop_flip
+
+    def recording(images, *args):
+        devices.add(images.device.type)
+        return crop_flip(images, *args)
+
+    augmentations.crop_flip = recording
+    try:
+        t0 = time.time()
+        folder = baked.bake_dataset(train, cfg.data, cfg.data.db, seed=cfg.seed, device=DEVICE)
+        seconds = time.time() - t0
+    finally:
+        augmentations.crop_flip = crop_flip
+    store = baked.BakedDataset(folder)
+    n = len(train)
+    written = store.images.nbytes + store.labels.nbytes
+    result = {"seconds": seconds, "gb_written": written / 1e9,
+              "gb_per_s": written / 1e9 / seconds, "shape": list(store.images.shape),
+              "augmentation_devices": sorted(devices), "folder": folder.name}
+    log(f"  baked {folder.name}: {store.images.shape} in {seconds:.2f} s, "
+        f"{written / 1e9:.3f} GB written, {written / 1e9 / seconds:.3f} GB/s; "
+        f"augmentation ran on {sorted(devices)}")
+    check(store.images.shape == (BAKE_ROUNDS, n, BAKE_SIZE, BAKE_SIZE, 3),
+          f"store shape {store.images.shape}")
+    check(store.meta == {"name": "CIFAR10", "rounds": BAKE_ROUNDS, "size": n,
+                         "shape": [BAKE_SIZE, BAKE_SIZE, 3], "classes": 10,
+                         "first_round_clean": False, "shuffle_while_writing": True},
+          f"store meta {store.meta}")
+    check(devices == {torch.device(DEVICE).type}, f"the bake augmented on {devices}")
+    rng, pick = np.random.default_rng(cfg.seed), np.random.default_rng(1)
+    bad = []
+    for r in range(BAKE_ROUNDS):
+        order = rng.permutation(n)    # the bake's order of round r
+        check(np.array_equal(store.labels[r], train.labels[order]),
+              f"round {r}'s labels are not the source's in the round's order")
+        rows = np.sort(pick.choice(n, BAKE_SAMPLES, replace=False))
+        images = torch.from_numpy(np.asarray(store.images[r][rows])).to(DEVICE)
+        sources = torch.from_numpy(train.images[order[rows]]).to(DEVICE)
+        bad.append(int((~is_window(torch, images, sources)).sum()))
+    result["images_not_a_window"] = bad
+    log(f"  labels of every round in its order; of {BAKE_SAMPLES} sampled images a round, "
+        f"not one of their source's 162 crop/flip windows: {bad}")
+    check(not any(bad), f"baked images that are no crop/flip window of their source: {bad}")
+    return result
+
+
+def upload_timer(torch):
+    """Wrap ``training.upload_rows``: every call's seconds, synchronised."""
+    from fullbatchtraining_tpu_torch.training import training
+
+    original, seconds = training.upload_rows, []
+
+    def timed(*args, **kwargs):
+        t0 = time.time()
+        out = original(*args, **kwargs)
+        if out.is_cuda:
+            torch.cuda.synchronize()
+        seconds.append(time.time() - t0)
+        return out
+
+    training.upload_rows = timed
+    return seconds, lambda: setattr(training, "upload_rows", original)
+
+
+def phase_baked_fb1(torch, bn, fb1):
+    """9b, ``fb_10_1``: one ``hyp=fb1`` step over the flat store as phase 4
+    runs it (bf16, blocks and chunks of 2048): phase 4's launches a chunk
+    and an evaluation, all at 16 bytes a thread."""
+    from fullbatchtraining_tpu_torch.data import epoch_layout
+
+    bn.reset_counts()
+    uploads, restore = upload_timer(torch)
+    try:
+        cfg, bundle, _, _, stats = run_main_path(torch, FULL_WIDTH + BAKED + ["hyp.steps=1"])
+    finally:
+        restore()
+    counts, wide = dict(bn.launches), dict(bn.vector_launches)
+    blocks, chunks, sub = epoch_layout(bundle.size, bundle.batch_size, cfg.hyp.sub_batch)
+    fb1_chunks = fb1["chunks_per_step"]
+    per_chunk = {k: fb1["launches"][k] // (3 * fb1_chunks) for k in KERNELS}
+    eval_apply = (fb1["launches"]["apply"] - fb1["launches"]["stats"]) // fb1["evals"]
+    expected = {**{k: per_chunk[k] * blocks * chunks for k in KERNELS},
+                "apply": per_chunk["stats"] * blocks * chunks + eval_apply}
+    store_bytes = blocks * chunks * sub * 3 * BAKE_SIZE ** 2
+    result = {"step_s": stats["train_time"][0], "images": blocks * chunks * sub,
+              "upload_s": uploads, "store_device_bytes": store_bytes,
+              "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "train_loss": stats["train_loss"], "valid_loss": stats["valid_loss"],
+              "launches": counts, "vector_launches": wide,
+              "chunks_vs_phase_4": blocks * chunks / fb1_chunks}
+    log(f"  step {result['step_s']:.3f} s over {blocks * chunks} chunks of {sub} "
+        f"({result['images']} images, {result['chunks_vs_phase_4']:.3f}x phase 4's chunks); "
+        f"store upload {uploads} s for {store_bytes / 1e9:.3f} GB on the card; peak memory "
+        f"{result['peak_memory_gib']:.2f} GiB; train loss {stats['train_loss'][0]:.4f}, "
+        f"valid loss {stats['valid_loss'][0]:.4f}; launches {counts}")
+    check(counts == expected, f"fb_10_1 launches {counts}, phase 4's a chunk gives {expected}")
+    check(wide == counts, f"launches {counts}, of them at 16 bytes a thread {wide}")
+    check(all(map(math.isfinite, stats["train_loss"] + stats["valid_loss"])), "non-finite loss")
+    return result
+
+
+def phase_baked_sgd(torch, bn, sgd):
+    """9c, ``SGD_10_CIFAR``: ``hyp=base_sgd hyp.train_semi_stochastic=True``
+    as its yaml has it, 2 steps: phase 8c's launches exactly, and each
+    step's staged rows bitwise the host gather of round ``step % rounds``
+    from the memmap in the step's order. Returns the result and the staged
+    rows of step 1 for 9e."""
+    from fullbatchtraining_tpu_torch.data import epoch_order
+    from fullbatchtraining_tpu_torch.training import training
+
+    staged, stage = {}, training.Trainer.stage
+
+    def recording(self, step):
+        out = stage(self, step)
+        staged[step] = (self, out)
+        return out
+
+    bn.reset_counts()
+    training.Trainer.stage = recording
+    try:
+        cfg, bundle, _, _, stats = run_main_path(torch, SGD_FULL + BAKED + SEMI, "base_sgd")
+    finally:
+        training.Trainer.stage = stage
+    counts, wide = dict(bn.launches), dict(bn.vector_launches)
+    trainer = staged[0][0]
+    n, rows = bundle.baked.meta["size"], trainer.num_blocks * trainer.chunks
+    check(trainer.semi and trainer.images is not None and sorted(staged) == [0, 1],
+          "9c did not stage steps 0 and 1 from the resident store")
+    equal = []
+    for step, (_, (images, labels)) in sorted(staged.items()):
+        order = epoch_order(cfg.seed, step, n)[:rows * trainer.sub]
+        host = bundle.baked.round(step)
+        equal.append(torch.equal(images.flatten(0, 1),
+                                 torch.from_numpy(host.images[order]).to(images.device))
+                     and torch.equal(labels.flatten(0, 1).cpu(),
+                                     torch.from_numpy(host.labels[order]).long()))
+    gather = {"ms": cuda_ms(torch, lambda: trainer.stage(1), iters=10),
+              "host_ms": host_ms(torch, lambda: trainer.stage(1), iters=10),
+              "bytes": 2 * rows * trainer.sub * trainer.images[0].numel()}
+    result = {"step_s": stats["train_time"], "updates_per_step": trainer.num_blocks,
+              "ms_per_update": [1e3 * t / trainer.num_blocks for t in stats["train_time"]],
+              "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "store_device_bytes": trainer.images.numel(), "staged_equal_host": equal,
+              "gather": gather, "train_loss": stats["train_loss"],
+              "valid_loss": stats["valid_loss"], "launches": counts}
+    for i, t in enumerate(stats["train_time"]):
+        log(f"  step {i + 1} (round {i}): {t:.3f} s, {1e3 * t / trainer.num_blocks:.2f} ms an "
+            f"update, train loss {stats['train_loss'][i]:.4f}")
+    log(f"  staged rows bitwise the host gather of each step's round: {equal}; gather "
+        f"{gather['ms']:.3f} ms (host {gather['host_ms']:.3f} ms) for "
+        f"{gather['bytes'] / 1e6:.1f} MB read and written; store {trainer.images.numel() / 1e9:.3f} "
+        f"GB on the card; peak memory {result['peak_memory_gib']:.2f} GiB; launches {counts}")
+    check(all(equal), f"staged rows differ from the host gather: {equal}")
+    check(counts == sgd["launches"], f"SGD_10_CIFAR launches {counts}, phase 8c's {sgd['launches']}")
+    check(wide == counts, f"launches {counts}, of them at 16 bytes a thread {wide}")
+    check(all(map(math.isfinite, stats["train_loss"] + stats["valid_loss"])), "non-finite loss")
+    resident = staged[1][1]
+    del staged, trainer
+    torch.cuda.empty_cache()
+    return result, resident
+
+
+def phase_baked_host_path(torch, resident):
+    """9e: ``impl.device_shuffle_max_bytes`` below the store's size keeps it
+    on the host; step 1 stages bitwise the rows of 9c's resident step 1."""
+    from fullbatchtraining_tpu_torch.data import construct_databundle
+    from fullbatchtraining_tpu_torch.models import construct_model
+    from fullbatchtraining_tpu_torch.training import training
+
+    cfg = main_path_config(SGD_FULL + BAKED + SEMI, "base_sgd")
+    bundle = construct_databundle(cfg.data, cfg.impl, cfg.hyp, seed=cfg.seed, device=DEVICE)
+    cfg.impl.device_shuffle_max_bytes = bundle.train.images.nbytes - 1
+    model = construct_model(cfg.model, bundle.channels, bundle.classes, seed=cfg.seed)
+    trainer = training.Trainer(model, bundle, cfg, torch.device(DEVICE))
+    check(trainer.semi and trainer.images is None, "9e's store went to the card")
+    images, labels = trainer.stage(1)
+    same = torch.equal(images, resident[0]) and torch.equal(labels, resident[1])
+    result = {"equal_to_resident": same,
+              "stage_ms": cuda_ms(torch, lambda: trainer.stage(1), iters=3, warmup=1)}
+    log(f"  host path, step 1: staged rows bitwise the resident path's: {same}; staging "
+        f"{result['stage_ms']:.1f} ms (the round gathered on the host and uploaded)")
+    check(same, "the host path stages other rows than the resident path")
+    return result
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write every measurement to this JSON file")
@@ -1009,6 +1256,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from fullbatchtraining_tpu_torch.ops import _build, bn
+
+    started = time.time()
+
+    def phase(title):
+        log(f"{title}  (at {time.time() - started:.0f} s)")
 
     card = card_line()
     log(f"[1] card: {card}")
@@ -1026,29 +1278,41 @@ def main() -> int:
     check(compiler and not missing, f"no -Xptxas -v report for {missing or 'any kernel'}")
     check(not spilled, f"kernels spill (store, load bytes): {spilled}")
 
-    log("[2] kernels against their plain versions (chunk of 2048 images)")
+    phase("[2] kernels against their plain versions (chunk of 2048 images)")
     rows = phase_kernels(torch, bn)
-    log("[3] float32 full-batch step: kernels against plain versions")
+    phase("[3] float32 full-batch step: kernels against plain versions")
     phase_fp32_step(torch, bn)
-    log("[4] main path at full width: ResNet-18 hyp=fb1, 3 steps, bf16")
+    phase("[4] main path at full width: ResNet-18 hyp=fb1, 3 steps, bf16")
     full = phase_full_width(torch, bn)
-    log("[5] profile of one full-width step")
+    phase("[5] profile of one full-width step")
     profile = phase_profile(torch)
-    log("[6] float32 hyp=gradreg step: kernels against plain versions")
+    phase("[6] float32 hyp=gradreg step: kernels against plain versions")
     double_backward = phase_gradreg_fp32(torch, bn)
-    log("[7] hyp=gradreg at full width: ResNet-18, 3 steps, bf16")
+    phase("[7] hyp=gradreg at full width: ResNet-18, 3 steps, bf16")
     gradreg = phase_gradreg_full_width(torch, bn, full)
-    log("[8a] kernels against their plain versions at blocks of 128 and chunks of 32 images")
+    phase("[8a] kernels against their plain versions at blocks of 128 and chunks of 32 images")
     small_rows = phase_kernels_small(torch, bn)
-    log("[8b] float32 hyp=base_sgd epoch (16 updates, shuffled), with and without SAM: "
+    phase("[8b] float32 hyp=base_sgd epoch (16 updates, shuffled), with and without SAM: "
         "kernels against plain versions")
     sgd_epoch = phase_sgd_epoch(torch, bn)
-    log("[8c] hyp=base_sgd at full width: 2 steps of 390 updates, float32")
+    phase("[8c] hyp=base_sgd at full width: 2 steps of 390 updates, float32")
     sgd = phase_sgd_full_width(torch, bn)
-    log("[8d] hyp=gradreg data.batch_size=32 hyp.shuffle=True: 1 full-width bf16 step, 390 chunks")
+    phase("[8d] hyp=gradreg data.batch_size=32 hyp.shuffle=True: 1 full-width bf16 step, 390 chunks")
     fb_practice = phase_fb_practice(torch, bn, full)
-    log("[8e] resume from a checkpoint: bitwise equal to the straight run")
+    phase("[8e] resume from a checkpoint: bitwise equal to the straight run")
     resume = phase_resume(torch)
+    phase("[9a] bake the 10x CIFAR store: 10 rounds of 50,000 images, crop+flip on the card")
+    bake = phase_bake(torch)
+    phase("[9b] fb_10_1: 1 full-width bf16 hyp=fb1 step over the 500,000 baked images")
+    baked_fb1 = phase_baked_fb1(torch, bn, full)
+    phase("[9c] SGD_10_CIFAR: hyp=base_sgd hyp.train_semi_stochastic=True, 2 steps, float32")
+    baked_sgd, resident = phase_baked_sgd(torch, bn, sgd)
+    phase("[9d] float32 semi-stochastic hyp=fb1 step on a 2-round store: kernels against plain "
+        "versions")
+    phase_fp32_step(torch, bn, BAKED_FP32)
+    phase("[9e] the host path of semi-stochastic staging")
+    baked_host = phase_baked_host_path(torch, resident)
+    del resident
 
     kernels = []
     for name in ("stats", "apply", "bwd_reduce", "bwd_apply"):
@@ -1063,6 +1327,7 @@ def main() -> int:
             "launches_gradreg": gradreg["forward-differences"]["launches"][name],
             "launches_sgd": sgd["launches"][name],
             "launches_fb_shuffle": fb_practice["launches"][name],
+            "launches_baked": baked_fb1["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": "bytes", "library_ms": total("library_ms")})
@@ -1076,7 +1341,10 @@ def main() -> int:
              "compiler": compiler, "kernel_rows": rows, "full_width": full, "profile": profile,
              "double_backward": double_backward, "gradreg": gradreg,
              "small_kernel_rows": small_rows, "sgd_epoch": sgd_epoch, "sgd": sgd,
-             "fb_practice": fb_practice, "resume": resume, "kernels": kernels}, indent=1))
+             "fb_practice": fb_practice, "resume": resume, "bake": bake,
+             "baked_fb1": baked_fb1, "baked_sgd": baked_sgd, "baked_host": baked_host,
+             "kernels": kernels}, indent=1))
+    log(f"all phases passed in {time.time() - started:.0f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

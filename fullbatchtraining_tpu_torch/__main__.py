@@ -35,7 +35,8 @@ def main(overrides=None):
              cfg.name, cfg.seed, cfg.dryrun, device)
 
     start = time.time()
-    bundle = construct_databundle(cfg.data, cfg.impl, cfg.hyp, dryrun=cfg.dryrun, seed=cfg.seed)
+    bundle = construct_databundle(cfg.data, cfg.impl, cfg.hyp, dryrun=cfg.dryrun, seed=cfg.seed,
+                                  device=device)
     model = construct_model(cfg.model, bundle.channels, bundle.classes, seed=cfg.seed)
     _, stats = train(model, bundle, cfg, device=device)
     elapsed = time.time() - start

@@ -1,9 +1,11 @@
-"""Data of the port: host arrays, device-side augmentation, epoch layout."""
+"""Data of the port: host arrays, the baked store, device-side augmentation,
+epoch layout."""
 
 from .augmentations import crop_flip, draw_crop_flip, make_augment_fn, make_eval_transform, normalize
+from .baked import BakedDataset, bake_dataset
 from .datasets import ArrayDataset, construct_datasets
 from .pipeline import DataBundle, construct_databundle, epoch_layout, epoch_order, layout_epoch
 
-__all__ = ["ArrayDataset", "DataBundle", "construct_datasets", "construct_databundle",
-           "crop_flip", "draw_crop_flip", "epoch_layout", "epoch_order", "layout_epoch",
-           "make_augment_fn", "make_eval_transform", "normalize"]
+__all__ = ["ArrayDataset", "BakedDataset", "DataBundle", "bake_dataset", "construct_datasets",
+           "construct_databundle", "crop_flip", "draw_crop_flip", "epoch_layout", "epoch_order",
+           "layout_epoch", "make_augment_fn", "make_eval_transform", "normalize"]

@@ -58,18 +58,23 @@ def crop_spec(arg) -> tuple[int, int]:
     return int(size), int(pad)
 
 
-def make_augment_fn(aug_cfg) -> Callable:
-    """``fn(images_u8, generator) -> images_u8`` for ``data.augmentations_train``.
+POLICY_KEYS = ("RandAugment", "AutoAugment", "AugMix")
 
-    The slice ports RandomCrop and RandomHorizontalFlip, the CIFAR recipe."""
-    aug_cfg = dict(aug_cfg or {})
-    unknown = set(aug_cfg) - {"RandomCrop", "RandomHorizontalFlip"}
-    if unknown:
-        raise NotImplementedError(
-            f"augmentations {sorted(unknown)} are not ported yet "
-            "(ROADMAP.md, 'Baked data and semi-stochastic')")
-    size, pad = crop_spec(aug_cfg["RandomCrop"]) if "RandomCrop" in aug_cfg else (None, 0)
-    flip_p = float(aug_cfg.get("RandomHorizontalFlip", 0.0))
+
+def augmented_hw(aug_cfg, h: int, w: int) -> tuple[int, int]:
+    """Output spatial dims after the configured augmentations (policy ops
+    preserve size; size ops apply in config order)."""
+    for name, arg in dict(aug_cfg or {}).items():
+        if name == "RandomCrop":
+            h = w = crop_spec(arg)[0]
+        elif name in ("RandomResizedCrop", "CenterCrop", "Resize"):
+            h = w = int(arg)
+    return h, w
+
+
+def _crop_flip_op(size, pad: int, flip_p: float) -> Callable:
+    """Random crop (``size`` None: none) and horizontal flip, from one
+    generator's draws."""
 
     def augment(images: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
         b, h, w, _ = images.shape
@@ -79,6 +84,40 @@ def make_augment_fn(aug_cfg) -> Callable:
         if size is None:  # flip only: no crop, no padding
             oy, ox = torch.zeros_like(oy), torch.zeros_like(ox)
         return crop_flip(images, oy, ox, flip, crop, pad)
+
+    return augment
+
+
+def make_augment_fn(aug_cfg) -> Callable:
+    """``fn(images_u8, generator) -> images_u8`` for ``data.augmentations_train``.
+
+    Ops apply in config order. RandomCrop and RandomHorizontalFlip alone, the
+    CIFAR recipe, take one crop+flip gather. The policy augmentations run
+    only in a baked store (``data/baked.py``), as in the JAX package."""
+    aug_cfg = dict(aug_cfg or {})
+    ops = []
+    for name, arg in aug_cfg.items():
+        if name == "RandomCrop":
+            ops.append(_crop_flip_op(*crop_spec(arg), 0.0))
+        elif name == "RandomHorizontalFlip":
+            ops.append(_crop_flip_op(None, 0, float(arg)))
+        elif name == "CenterCrop":
+            ops.append(lambda x, g, s=int(arg): center_crop(x, s))
+        elif name in ("RandomResizedCrop", "Resize"):
+            raise NotImplementedError(
+                f"augmentation {name!r} is not ported yet "
+                "(ROADMAP.md, 'Streamed epochs and other datasets')")
+        else:
+            raise ValueError(f"Unsupported augmentation {name} (policy augmentations "
+                             "run only in a baked store: data.db.augmentations_train).")
+    if set(aug_cfg) == {"RandomCrop", "RandomHorizontalFlip"}:
+        return _crop_flip_op(*crop_spec(aug_cfg["RandomCrop"]),
+                             float(aug_cfg["RandomHorizontalFlip"]))
+
+    def augment(images: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+        for op in ops:
+            images = op(images, generator)
+        return images
 
     return augment
 

@@ -4,17 +4,21 @@
 The training set lives as one uint8 array; an optimizer step consumes it as
 ``num_blocks x chunks x sub_batch`` samples (drop-last), in order or, with
 ``hyp.shuffle``, in the step's :func:`epoch_order`, and the trainer keeps it
-resident on the device.
+resident on the device. With ``data.db`` the set is the baked store's
+``rounds x size`` images (``data/baked.py``), whose augmentations are fixed
+at bake time; a semi-stochastic step reads one of its rounds.
 """
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 from typing import Callable
 
 import numpy as np
 
 from .augmentations import make_augment_fn, make_eval_transform
+from .baked import BakedDataset, bake_dataset
 from .datasets import ArrayDataset, construct_datasets
 
 
@@ -34,6 +38,7 @@ class DataBundle:
     pixels: int
     batch_size: int            # block size
     name: str
+    baked: BakedDataset | None = None
     augmentations_active: bool = True
 
     @property
@@ -42,20 +47,27 @@ class DataBundle:
 
 
 def construct_databundle(cfg_data, cfg_impl=None, cfg_hyp=None, dryrun: bool = False,
-                         seed: int = 0) -> DataBundle:
+                         seed: int = 0, device="cuda") -> DataBundle:
     """Datasets + augmentation fns + layout constants for one data config.
 
-    ``cfg_impl``, ``cfg_hyp`` and ``seed`` are accepted for call-site symmetry
-    with the JAX package; nothing of the slice's data path reads them."""
-    if cfg_data.db.name is not None:
-        raise NotImplementedError(
-            "data.db (baked N x datasets) is not ported yet "
-            "(ROADMAP.md, 'Baked data and semi-stochastic')")
+    With ``data.db`` the store is baked (seeded by ``seed``, its non-policy
+    augmentations on ``device``) or reused, and the training set becomes its
+    flat ``rounds x size`` images, with no augmentation at train time.
+    ``cfg_impl`` and ``cfg_hyp`` are accepted for call-site symmetry with
+    the JAX package; nothing of the data path reads them."""
     train, valid = construct_datasets(cfg_data, dryrun=dryrun)
+    baked = None
+    use_db = cfg_data.db.name is not None
+    if use_db:
+        baked = BakedDataset(bake_dataset(train, cfg_data, cfg_data.db, seed=seed,
+                                          device=device))
+        if cfg_data.db.get("temporary_database", False):
+            atexit.register(baked.cleanup)  # the store goes when the process exits
+        train = baked.flat()
     return DataBundle(
         train=train,
         valid=valid,
-        augment=make_augment_fn(cfg_data.augmentations_train),
+        augment=make_augment_fn(None if use_db else cfg_data.augmentations_train),
         eval_transform=make_eval_transform(cfg_data.augmentations_val),
         mean=np.asarray(cfg_data.mean, np.float32),
         std=np.asarray(cfg_data.std, np.float32),
@@ -65,7 +77,8 @@ def construct_databundle(cfg_data, cfg_impl=None, cfg_hyp=None, dryrun: bool = F
         pixels=cfg_data.pixels,
         batch_size=int(cfg_data.batch_size),
         name=cfg_data.name,
-        augmentations_active=bool(cfg_data.augmentations_train),
+        baked=baked,
+        augmentations_active=bool(cfg_data.augmentations_train) and not use_db,
     )
 
 

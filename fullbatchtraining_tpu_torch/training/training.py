@@ -23,7 +23,9 @@ pre-pass, clipped to ``hyp.grad_clip`` in the 2-norm), then one EMA update.
 second full pass in a full-batch one. ``hyp.train_switch_stochastic`` inverts
 the mode from that step on. With ``hyp.shuffle`` each step reads the
 resident epoch in the order :func:`~..data.pipeline.epoch_order` draws for
-it, gathered on the device.
+it, gathered on the device. On a baked store (``data.db``) a full-batch step
+reads all ``rounds x size`` images; with ``hyp.train_semi_stochastic`` step
+``s`` reads round ``s % rounds`` alone.
 
 These are the JAX package's semantics for one device with
 ``impl.block_grouping=1`` (its grouped scan is exact, so it computes the same
@@ -46,8 +48,9 @@ from torch import nn
 from torch.func import functional_call
 
 from ..data.augmentations import normalize as normalize_images
-from ..data.pipeline import DataBundle, epoch_layout, epoch_order, layout_epoch
+from ..data.pipeline import DataBundle, epoch_layout, epoch_order
 from ..models.modules import get_loss_fn
+from ..utils import resolve_device
 from .grad_reg import make_grad_regularizer, tree_add_scaled, tree_sqnorm
 from .optimizers import make_lr_schedule, make_optimizer
 from .utils import CheckpointWriter, checkpoint_file, load_checkpoint
@@ -66,21 +69,10 @@ class TrainState:
     ema_model: nn.Module | None = None  # hyp.evaluate_ema: EMA of params and BN stats
 
 
-def resolve_device(device) -> torch.device:
-    """``torch.device(device)``; asking for CUDA without a card raises instead
-    of running on the CPU."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() is False; "
-                           "pass device='cpu' (CLI: +impl.device=cpu) to run on the CPU")
-    return device
-
-
 def check_slice(cfg) -> None:
     """Raise for modes the port does not run yet, naming their ROADMAP item."""
     hyp = cfg.hyp
     missing = [
-        (hyp.train_semi_stochastic, "hyp.train_semi_stochastic", "Baked data and semi-stochastic"),
         (cfg.impl.setup.dist, "distributed setup", "Data parallelism"),
         (cfg.analysis.type is not None, "analysis.type", "Analysis"),
         (cfg.analysis.save_model_every_nth_step is not None,
@@ -108,6 +100,17 @@ def tree_clip_by_norm(tensors, max_norm, norm_type, eps=1e-6):
     clipped = norm > max_norm
     scale = torch.where(clipped, max_norm / (norm + eps), torch.ones_like(norm))
     return [t * scale for t in tensors], clipped, norm
+
+
+def upload_rows(images, count: int, device, piece: int) -> torch.Tensor:
+    """The first ``count`` rows of the host array ``images`` (a baked store's
+    memmap too) as one uint8 tensor on ``device``, copied ``piece`` rows at a
+    time: the host holds one piece, never the whole set, in RAM."""
+    out = torch.empty((count, *images.shape[1:]), dtype=torch.uint8, device=device)
+    for start in range(0, count, piece):
+        stop = min(start + piece, count)
+        out[start:stop].copy_(torch.from_numpy(np.array(images[start:stop])))
+    return out
 
 
 def stage_validation(bundle: DataBundle, batch: int, device, dryrun: bool = False):
@@ -154,8 +157,12 @@ class Trainer:
                                       f"{self.param_dtype} has no autocast form")
         # loss and stat scalars: at least float32, float64 in float64 runs
         self.stat_dtype = torch.promote_types(self.param_dtype, torch.float32)
+        # semi-stochastic: a step reads one round of the baked store
+        baked = bundle.baked
+        self.semi = bool(hyp.train_semi_stochastic) and baked is not None
+        self.round_size = baked.meta["size"] if self.semi else bundle.size
         self.num_blocks, self.chunks, self.sub = epoch_layout(
-            bundle.size, bundle.batch_size, hyp.sub_batch, 1, dryrun=cfg.dryrun)
+            self.round_size, bundle.batch_size, hyp.sub_batch, 1, dryrun=cfg.dryrun)
         self.criterion = get_loss_fn(hyp, bundle.batch_size)
         self.schedule = make_lr_schedule(hyp)
         self.weight_decay = float(hyp.optim.get("weight_decay", 0.0) or 0.0)
@@ -171,38 +178,60 @@ class Trainer:
                         if hyp.optim_modification.name == "SAM" else None)
 
         # The epoch stays resident on the device as uint8: in order, one row
-        # per chunk; shuffled, as the flat [N, H, W, C] set that stage()
-        # gathers from in each step's order
+        # per chunk; shuffled or semi-stochastic, as the flat [N, H, W, C]
+        # set that stage() gathers from in each step's order. A baked store
+        # goes up one round at a time from its memmap; a semi-stochastic one
+        # above impl.device_shuffle_max_bytes (or without
+        # impl.device_shuffle) stays on the host, and stage() uploads the
+        # step's round.
         self.shuffle = bool(hyp.shuffle)
         images, labels = bundle.train.images, bundle.train.labels
-        if self.shuffle:
-            limit = int(impl.get("device_shuffle_max_bytes", 8 << 30))
-            if images.nbytes > limit:
+        piece = baked.meta["size"] if baked is not None else len(images)
+        limit = int(impl.get("device_shuffle_max_bytes", 8 << 30))
+        fits = images.nbytes <= limit
+        if self.semi and not (bool(impl.get("device_shuffle", True)) and fits):
+            self.images = self.labels = None
+        elif self.semi or self.shuffle:
+            if not fits:
                 raise NotImplementedError(
                     f"a shuffled epoch of {images.nbytes} bytes, above "
                     f"impl.device_shuffle_max_bytes={limit}, is not ported yet "
                     "(ROADMAP.md, 'Streamed epochs and other datasets')")
-            self.images = torch.from_numpy(np.ascontiguousarray(images)).to(device)
-            self.labels = torch.from_numpy(np.asarray(labels)).long().to(device)
+            self.images = upload_rows(images, len(images), device, piece)
+            self.labels = torch.from_numpy(labels).long().to(device)
         else:
-            images, labels = layout_epoch(images, labels, self.num_blocks, self.chunks, self.sub)
-            self.images = torch.from_numpy(np.ascontiguousarray(images)).to(device).flatten(0, 2)
-            self.labels = torch.from_numpy(labels).long().to(device).flatten(0, 2)
+            rows = self.num_blocks * self.chunks
+            total = rows * self.sub
+            self.images = upload_rows(images, total, device, piece).view(
+                rows, self.sub, *images.shape[1:])
+            self.labels = torch.from_numpy(labels[:total]).long().to(device).view(rows, self.sub)
 
     def stage(self, step: int):
         """``(images, labels)`` of step ``step``, one row of ``sub`` samples a
-        chunk: the fixed rows in order, or the step's order gathered from the
-        resident epoch (only the order, int64, goes to the device)."""
-        if not self.shuffle:
+        chunk: the fixed rows in order, or the step's order (``arange`` when
+        unshuffled) gathered from the resident epoch, only the order (int64)
+        going to the device; semi-stochastic, that order offset into round
+        ``step % rounds``, or that round's rows in that order gathered on the
+        host and uploaded."""
+        if not (self.shuffle or self.semi):
             return self.images, self.labels
         hyp = self.cfg.hyp
-        total = self.num_blocks * self.chunks * self.sub
-        order = epoch_order(self.cfg.seed, step, len(self.images),
-                            bool(hyp.get("sample_with_replacement", False)))
-        idx = torch.from_numpy(order[:total]).to(self.device)
         rows = self.num_blocks * self.chunks
-        return (self.images.index_select(0, idx).view(rows, self.sub, *self.images.shape[1:]),
-                self.labels.index_select(0, idx).view(rows, self.sub))
+        n = self.round_size
+        order = (epoch_order(self.cfg.seed, step, n,
+                             bool(hyp.get("sample_with_replacement", False)))
+                 if self.shuffle else np.arange(n))[:rows * self.sub]
+        if self.semi and self.images is None:
+            ds = self.bundle.baked.round(step)
+            images = torch.from_numpy(ds.images[order]).to(self.device)
+            labels = torch.from_numpy(ds.labels[order]).long().to(self.device)
+        else:
+            if self.semi:
+                order = order + (step % self.bundle.baked.rounds) * n
+            idx = torch.from_numpy(order).to(self.device)
+            images = self.images.index_select(0, idx)
+            labels = self.labels.index_select(0, idx)
+        return images.view(rows, self.sub, *images.shape[1:]), labels.view(rows, self.sub)
 
     # -- inputs and forward -------------------------------------------------
     def _normalize(self, images):

@@ -21,6 +21,16 @@ log = logging.getLogger(__name__)
 _NOW_PATTERN = re.compile(r"\$\{now:([^}]*)\}")
 
 
+def resolve_device(device) -> torch.device:
+    """``torch.device(device)``; asking for CUDA without a card raises instead
+    of running on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() is False; "
+                           "pass device='cpu' (CLI: +impl.device=cpu) to run on the CPU")
+    return device
+
+
 def job_startup(cfg, script_name: str = "job"):
     """Finalize the config, create and enter ``<base_dir>/<date>/<time>``
     (Hydra's run dir, or ``hydra.run.dir``), log to stdout and a file, seed."""

@@ -120,3 +120,35 @@ def test_epoch_layout_matches(total, batch, sub, dryrun):
     for ours, r in zip(pipeline.layout_epoch(images, labels, *ref, 1),
                        jpipeline.layout_epoch(images, labels, *ref, 1)):
         np.testing.assert_array_equal(ours, r)
+
+
+@pytest.mark.parametrize("cfg", [
+    {"RandomCrop": [28, 2], "CenterCrop": 24},
+    {"CenterCrop": 28, "RandAugment": "rand-m9-n2"},
+    {"RandomResizedCrop": 24, "RandomHorizontalFlip": 0.5},
+    {"AugMix": "augmix-m3", "Resize": 40},
+    {}])
+def test_augmented_hw_matches(cfg):
+    assert aug.augmented_hw(cfg, 32, 32) == jaug.augmented_hw(cfg, 32, 32)
+
+
+def test_center_crop_composes_in_config_order():
+    """CenterCrop, a RandomCrop that can only take the whole image, and a
+    certain flip, applied in config order: deterministic, so equal to the
+    JAX package's composition."""
+    images = np.random.default_rng(5).integers(0, 256, (4, 32, 32, 3), dtype=np.uint8)
+    cfg = {"CenterCrop": 28, "RandomCrop": [28, 0], "RandomHorizontalFlip": 1.0}
+    ref = np.asarray(jaug.make_augment_fn(cfg)(jnp.asarray(images), jax.random.key(0)))
+    ours = aug.make_augment_fn(cfg)(torch.from_numpy(images), torch.Generator().manual_seed(0))
+    assert ours.shape == (4, 28, 28, 3)
+    np.testing.assert_array_equal(ours.numpy(), ref)
+
+
+@pytest.mark.parametrize("key", ["RandAugment", "AutoAugment", "AugMix"])
+def test_policy_key_outside_a_bake_raises(key):
+    """A policy augmentation runs only in a baked store: in
+    ``data.augmentations_train`` both packages refuse it."""
+    with pytest.raises(ValueError, match=key):
+        jaug.make_augment_fn({key: "v0"})
+    with pytest.raises(ValueError, match=key):
+        aug.make_augment_fn({key: "v0"})

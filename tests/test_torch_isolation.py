@@ -26,6 +26,8 @@ def _modules():
 
 
 def test_importing_every_module_loads_no_jax():
+    assert {"fullbatchtraining_tpu_torch.data.baked",
+            "fullbatchtraining_tpu_torch.data.policy_augment"} <= set(_modules())
     script = f"""
 import importlib, sys
 for name in {_modules()!r}:
@@ -94,7 +96,6 @@ def test_cli_dryrun_default_recipe(tmp_path):
 BOUNDARIES = {
     "lars": ["hyp/optim_modification=LARS"],
     "larc": ["hyp/optim_modification=LARC"],
-    "semi-stochastic": ["hyp.train_semi_stochastic=True"],
     "fista": ["hyp/optim=fista"],
     # the shuffled epoch stays on the card whole; a larger one would stream
     "shuffle-over-budget": ["hyp.shuffle=True", "impl.device_shuffle_max_bytes=1"],
@@ -107,7 +108,8 @@ BOUNDARIES = {
     "vgg": ["model=vgg11"],
     "densenet": ["model=densenet121"],
     "groupnorm": ["model.normalization=GroupNorm"],
-    "baked-db": ["data/db=baked"],
+    "random-resized-crop": ["+data.augmentations_train.RandomResizedCrop=32"],
+    "lbfgs": ["hyp/optim=lbfgs"],
     "tinyimagenet": ["data=TinyImageNet"],
     "resize-eval": ["+data.augmentations_val.Resize=32"],
 }
@@ -132,6 +134,54 @@ def test_modes_outside_the_slice_raise(case, config_dir):
     item = re.search(r"ROADMAP\.md, '([^']+)'", str(err.value))
     assert item, str(err.value)
     assert f"**{item.group(1)}" in (ROOT / "ROADMAP.md").read_text(), item.group(1)
+
+
+BAKED = ["data/db=baked", "data.db.rounds=2", "data.augmentations_train="]
+
+
+@pytest.mark.parametrize("recipe", ["fb1", "semi-stochastic", "no-card"])
+def test_cli_dryrun_baked(recipe, tmp_path):
+    """The 10x CIFAR lines of ``train.sh`` (cut to 2 rounds) run here on a
+    store baked under ``tmp_path``; without +impl.device=cpu the bake
+    refuses to start without a card."""
+    hyp = (["hyp=base_sgd", "hyp.train_semi_stochastic=True"] if recipe == "semi-stochastic"
+           else ["hyp=fb1"])
+    args = ([o for o in TINY if not o.startswith("hyp=")] + hyp + BAKED
+            + [f"data.db.path={tmp_path / 'db'}", f"base_dir={tmp_path}"]
+            + ([] if recipe == "no-card" else ["+impl.device=cpu"]))
+    run = subprocess.run([sys.executable, "-m", "fullbatchtraining_tpu_torch", *args],
+                         cwd=ROOT, capture_output=True, text=True, timeout=300)
+    if recipe != "no-card" or torch.cuda.is_available():
+        assert run.returncode == 0, run.stdout + run.stderr
+        assert "Final validation accuracy" in run.stdout
+        assert len(list((tmp_path / "db").glob("CIFAR10_256_rounds2_*/meta.json"))) == 1
+    else:
+        assert run.returncode != 0
+        assert "torch.cuda.is_available() is False" in run.stderr
+
+
+def test_semi_stochastic_without_a_store_changes_nothing(config_dir):
+    """Without ``data.db`` the flag has nothing to pick rounds from: the run
+    is the run without it, bitwise."""
+    from fullbatchtraining_tpu_torch.config import load_config
+    from fullbatchtraining_tpu_torch.data import construct_databundle
+    from fullbatchtraining_tpu_torch.models import construct_model
+    from fullbatchtraining_tpu_torch.training import train
+
+    runs = []
+    for extra in ([], ["hyp.train_semi_stochastic=True"]):
+        cfg = load_config(config_dir, overrides=[
+            "hyp=base_sgd", "model=resnet18", "model.width=4", "data.path=/tmp/__torch_nodata__",
+            "data.size=32", "data.batch_size=8", "hyp.steps=2", "hyp.warmup=0",
+            "seed=0"] + extra)
+        bundle = construct_databundle(cfg.data, cfg.impl, cfg.hyp, seed=0, device="cpu")
+        model = construct_model(cfg.model, bundle.channels, bundle.classes, seed=0)
+        state, stats = train(model, bundle, cfg, device="cpu")
+        runs.append((state.model.state_dict(), stats))
+    (ours, ours_stats), (ref, ref_stats) = runs[1], runs[0]
+    assert all(torch.equal(ours[k], ref[k]) for k in ref)
+    assert {k: v for k, v in ours_stats.items() if k != "train_time"} == {
+        k: v for k, v in ref_stats.items() if k != "train_time"}
 
 
 def test_multirun_raises():

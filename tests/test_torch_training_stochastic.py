@@ -7,7 +7,10 @@ in 4 blocks of 8, each block 2 chunks of 4, with evaluation after each step.
 ``hyp.warmup=0``, so every step updates. A shuffled epoch is drawn by numpy
 from ``(seed, step)`` on both sides, so both read the same order. The JAX side
 runs on a 1-device mesh with ``impl.block_grouping=1``, one ``train()`` a
-case.
+case. Each case pays for a JAX compile, so the cases are spread over this
+file (the SGD baseline), ``tests/test_torch_training_sam.py`` and
+``tests/test_torch_training_switch.py``, which share
+:func:`check_stochastic_case`.
 
 Params, BN running stats and every ``stats`` entry agree to rtol 1e-8, as in
 the full-batch tests: float64 with different summation orders keeps about
@@ -50,14 +53,6 @@ CASES = {
     # the stochastic body's own clip (2-norm of hyp.grad_clip) after
     # hyp=gradreg's regularizer with no pre-pass
     "clip-gradreg": ["hyp=base_sgd", "hyp.grad_clip=0.25", "hyp.grad_reg.block_strength=0.5"],
-    "sam-stochastic": ["hyp=base_sgd", "hyp/optim_modification=SAM"],
-    # two full passes a step; the EMA updates after the SAM step
-    "sam-full-batch": ["hyp=base_sgd", "hyp/optim_modification=SAM",
-                       "hyp.train_stochastic=False", "hyp.evaluate_ema=True",
-                       "hyp.eval_ema_momentum=0.5"],
-    # step 0 stochastic, steps 1 and 2 full-batch
-    "switch": ["hyp=base_sgd", "hyp.train_switch_stochastic=1"],
-    "fb1-shuffled": ["hyp=fb1", "hyp.shuffle=True"],
 }
 
 
@@ -71,9 +66,9 @@ def _assert_trees_close(ours, ref, path=""):
                                        err_msg=f"{path}/{key}")
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_stochastic_train_matches_jax(case, config_dir, monkeypatch):
-    overrides = BASE + CASES[case]
+def check_stochastic_case(extra, config_dir, monkeypatch):
+    """Train ``BASE + extra`` in both packages and compare the results."""
+    overrides = BASE + list(extra)
     with jax.enable_x64(True):
         cfg = jax_load_config(config_dir, overrides=overrides)
         mesh = make_mesh(cfg.impl.setup, devices=np.asarray(jax.devices()[:1]))
@@ -113,3 +108,8 @@ def test_stochastic_train_matches_jax(case, config_dir, monkeypatch):
     for key in sorted(keys):
         np.testing.assert_allclose(stats[key], ref_stats[key], rtol=RTOL, atol=1e-12,
                                    err_msg=key)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_stochastic_train_matches_jax(case, config_dir, monkeypatch):
+    check_stochastic_case(CASES[case], config_dir, monkeypatch)
