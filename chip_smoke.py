@@ -73,12 +73,25 @@ Phases, in order; any failure exits non-zero before the result lines:
    semi-stochastic ``hyp=fb1`` step over a 2-round store of 8,192 images a
    round. (e) The host path (the store above
    ``impl.device_shuffle_max_bytes``) stages bitwise the rows of (c).
+10. Data parallelism (``impl/setup=distributed``). (a) NCCL in a group of
+   one: phase 4's step (1 step) through the distributed path, bitwise equal
+   to the same step without it, phase 4's launches a step, one
+   ``all_reduce`` for the step and one an evaluation; the bucket's bytes and
+   its all-reduce's CUDA-event time, first (communicator set-up included)
+   and warm. (b) Two gloo ranks that share the card
+   (this script with ``--rank``, in two processes): phase 3's float32 step
+   at 8 chunks a rank against one process's 16: loss, params, chunk norms
+   slot by slot and ``grad_norm * sqrt(2)``; half the launches a rank, and
+   the ranks' params bitwise equal. (c) ``train_distributed_multinode.sh:8``,
+   ``hyp=gradreg model=resnet152`` in a group of one, cut to 20 chunks of
+   128: 2 passes x its BN layers x 20 launches of each backward kernel.
 
 The last lines are the card line, a JSON object of per-kernel numbers (their
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` sum the 20 BN layers of
 one bf16 chunk of 2048 images; ``launches`` counts phase 4,
 ``launches_gradreg`` phase 7, ``launches_sgd`` phase 8c,
-``launches_fb_shuffle`` phase 8d and ``launches_baked`` phase 9b), and
+``launches_fb_shuffle`` phase 8d, ``launches_baked`` phase 9b and
+``launches_dist`` phase 10a), and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -88,6 +101,7 @@ import argparse
 import copy
 import json
 import math
+import socket
 import subprocess
 import sys
 import time
@@ -940,9 +954,7 @@ def phase_fb_practice(torch, bn, fb1):
     cfg, bundle, _, _, stats = run_main_path(torch, FULL_WIDTH + ["hyp.steps=1",
                                                                   "hyp.shuffle=True"])
     counts = dict(bn.launches)
-    per_step = {k: fb1["launches"][k] // 3 for k in KERNELS}
-    eval_apply = (fb1["launches"]["apply"] - fb1["launches"]["stats"]) // fb1["evals"]
-    expected = {**per_step, "apply": per_step["stats"] + eval_apply}
+    expected = fb1_step_launches(fb1)
     check(counts == expected, f"shuffled fb1 step launches {counts}, phase 4's a step {expected}")
     check(dict(bn.vector_launches) == counts, "a shuffled fb1 launch took narrow accesses")
     model = construct_model(cfg.model, bundle.channels, bundle.classes, seed=cfg.seed)
@@ -1243,9 +1255,268 @@ def phase_baked_host_path(torch, resident):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 10: data parallelism
+# ---------------------------------------------------------------------------
+
+DIST_DIR = ROOT / "build" / "chip_smoke_dist"
+RANK_TIMEOUT = 300     # seconds for 10b's two rank processes
+MULTINODE = ["model=resnet152", "hyp.steps=1", "data.size=2560"]   # 20 chunks of 128
+# unaugmented: two ranks draw other crops than one process does
+DIST_STEP = FP32_STEP + ["data.augmentations_train="]
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def dist_config(size=1, rank=0, port=None):
+    return ["impl/setup=distributed", f"impl.setup.url=127.0.0.1:{port or free_port()}",
+            f"impl.setup.world_size={size}", f"impl.setup.rank={rank}"]
+
+
+def all_reduce_timer(torch):
+    """Wrap ``torch.distributed.all_reduce``: each call's bytes, CUDA-event
+    ms (synchronised after the call) and an empty tensor of its shape and
+    dtype."""
+    import torch.distributed as dist
+
+    original, seen = dist.all_reduce, []
+
+    def timed(tensor, *args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = original(tensor, *args, **kwargs)
+        end.record()
+        end.synchronize()
+        seen.append((tensor.numel() * tensor.element_size(), start.elapsed_time(end),
+                     torch.empty_like(tensor)))
+        return out
+
+    dist.all_reduce = timed
+    return seen, lambda: setattr(dist, "all_reduce", original)
+
+
+def fb1_step_launches(fb1):
+    """Phase 4's launches of one step and one evaluation."""
+    per_step = {k: fb1["launches"][k] // 3 for k in KERNELS}
+    eval_apply = (fb1["launches"]["apply"] - fb1["launches"]["stats"]) // fb1["evals"]
+    return {**per_step, "apply": per_step["stats"] + eval_apply}
+
+
+def phase_dist_one(torch, bn, fb1):
+    """10a: phase 4's step (1 step, bf16) in an NCCL group of one, set up by
+    ``parallel.setup_distributed`` as the CLI sets it up, then the same step
+    without the group: params, running stats and stats bitwise equal."""
+    import torch.distributed as dist
+
+    from fullbatchtraining_tpu_torch import parallel
+
+    step = FULL_WIDTH + ["hyp.steps=1"]
+    extra = step + dist_config()
+    world = parallel.setup_distributed(main_path_config(extra).impl.setup, DEVICE)
+    try:
+        check(world.size == 1 and dist.get_backend() == "nccl",
+              f"a group of {world.size} on {dist.get_backend()}")
+        bn.reset_counts()
+        parallel.reset_counts()
+        seen, restore = all_reduce_timer(torch)
+        try:
+            _, _, _, dstate, dstats = run_main_path(torch, extra)
+        finally:
+            restore()
+        counts, calls = dict(bn.launches), dict(parallel.calls)
+        # the step's all_reduce, the group's first, includes NCCL's set-up of
+        # its communicator: time the same bucket warm
+        bucket = seen[0][2].zero_()
+        warm_ms = cuda_ms(torch, lambda: dist.all_reduce(bucket, group=world.group), iters=20)
+    finally:
+        parallel.shutdown(world)
+    _, _, _, state, stats = run_main_path(torch, step)
+    ours, ref = dstate.model.state_dict(), state.model.state_dict()
+    differ = [k for k in ref if not torch.equal(ours[k], ref[k])]
+    stats_differ = [k for k in stats if k != "train_time" and stats[k] != dstats[k]]
+    evals = len(dstats["valid_loss"])
+    result = {"step_s": dstats["train_time"][0], "step_s_without_group": stats["train_time"][0],
+              "phase_4_step_s": fb1["step_s"], "launches": counts, "collectives": calls,
+              "bucket_bytes": seen[0][0], "all_reduce_ms": seen[0][1],
+              "warm_all_reduce_ms": warm_ms,
+              "eval_all_reduce_ms": [ms for _, ms, _ in seen[1:]],
+              "tensors_differ": differ, "stats_differ": stats_differ}
+    log(f"  step {result['step_s']:.3f} s in the group, {result['step_s_without_group']:.3f} s "
+        f"without (phase 4: {', '.join(f'{t:.3f}' for t in fb1['step_s'])} s); bucket "
+        f"{seen[0][0] / 1e6:.1f} MB, all_reduce {seen[0][1]:.3f} ms (warm {warm_ms:.4f} ms; "
+        f"evaluation {[f'{ms:.3f}' for ms in result['eval_all_reduce_ms']]} ms); "
+        f"collectives {calls}; "
+        f"launches {counts}; {len(differ)} of {len(ref)} tensors and stats {stats_differ} differ")
+    check(not differ and not stats_differ,
+          f"the step in a group of one differs: tensors {differ[:5]}, stats {stats_differ}")
+    check(calls == {"all_reduce": 1 + evals, "broadcast": 0, "barrier": 0},
+          f"collectives {calls}, expected 1 all_reduce for the step and 1 an evaluation")
+    check(counts == fb1_step_launches(fb1),
+          f"launches {counts}, phase 4's a step {fb1_step_launches(fb1)}")
+    return result
+
+
+def rank_command(rank, port, out):
+    return [sys.executable, str(Path(__file__).resolve()), "--rank", str(rank),
+            "--port", str(port), "--out", str(out)]
+
+
+def rank_main(torch, rank, port, out) -> int:
+    """One of 10b's two gloo ranks on this card: ``DIST_STEP``; writes its
+    launches, collectives, stats and a digest of its params to ``out``
+    (rank 0 also its state dict, beside it)."""
+    import hashlib
+
+    from fullbatchtraining_tpu_torch import parallel
+    from fullbatchtraining_tpu_torch.ops import bn
+
+    extra = DIST_STEP + dist_config(2, rank, port)
+    world = parallel.setup_distributed(main_path_config(extra).impl.setup, "cuda:0", "gloo")
+    try:
+        bn.reset_counts()
+        parallel.reset_counts()
+        _, _, _, state, stats = run_main_path(torch, extra)
+        launches, calls = dict(bn.launches), dict(parallel.calls)
+    finally:
+        parallel.shutdown(world)
+    digest = hashlib.sha256()
+    for p in state.model.parameters():
+        digest.update(p.detach().cpu().numpy().tobytes())
+    if rank == 0:
+        torch.save(state.model.state_dict(), Path(out).with_suffix(".pt"))
+    Path(out).write_text(json.dumps({"rank": rank, "launches": launches, "collectives": calls,
+                                     "stats": stats, "params_sha256": digest.hexdigest()}))
+    return 0
+
+
+def spawn_ranks(commands, logs, timeout):
+    """Run ``commands`` together; kill every one once one fails or ``timeout``
+    s pass. Returns their exit codes."""
+    procs = []
+    try:
+        for command, log_file in zip(commands, logs):
+            with open(log_file, "w") as out:
+                procs.append(subprocess.Popen(command, cwd=ROOT, stdout=out,
+                                              stderr=subprocess.STDOUT))
+        deadline = time.time() + timeout
+        while any(p.poll() is None for p in procs):
+            if time.time() > deadline or any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    return [p.returncode for p in procs]
+
+
+def phase_dist_two(torch, bn):
+    """10b: ``DIST_STEP`` (phase 3's float32 step, unaugmented) as two gloo
+    ranks sharing the card (8 chunks of 512 a rank) against one process (16
+    chunks)."""
+    import shutil
+
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    DIST_DIR.mkdir(parents=True)
+    port, outs = free_port(), [DIST_DIR / f"rank{r}.json" for r in range(2)]
+    logs = [DIST_DIR / f"rank{r}.log" for r in range(2)]
+    t0 = time.time()
+    codes = spawn_ranks([rank_command(r, port, outs[r]) for r in range(2)], logs, RANK_TIMEOUT)
+    wall = time.time() - t0
+    for r, code in enumerate(codes):
+        if code != 0:
+            log(f"  rank {r} exited {code}:\n" + logs[r].read_text()[-4000:])
+    check(codes == [0, 0], f"the two ranks exited {codes}")
+    ranks = [json.loads(out.read_text()) for out in outs]
+    rank0 = torch.load(outs[0].with_suffix(".pt"), map_location="cpu", weights_only=True)
+    bn.reset_counts()
+    _, _, initial, state, stats = run_main_path(torch, DIST_STEP)
+    one = dict(bn.launches)
+    two = ranks[0]["stats"]
+    loss_gap = abs(two["train_loss"][0] - stats["train_loss"][0]) / abs(stats["train_loss"][0])
+    norm_gap = (abs(two["grad_norm"][0] * math.sqrt(2) - stats["grad_norm"][0])
+                / stats["grad_norm"][0])
+    chunks = sum(k.startswith("grad_norm_train_") for k in stats)
+    # rank r's chunk b is chunk 2b + r of the one process's epoch
+    slot_gap = max(abs(two[f"grad_norm_train_{r * (chunks // 2) + b}"][0]
+                       - stats[f"grad_norm_train_{2 * b + r}"][0])
+                   / stats[f"grad_norm_train_{2 * b + r}"][0]
+                   for r in range(2) for b in range(chunks // 2))
+    ref = {k: v.double().cpu() for k, v in state.model.state_dict().items()}
+    worst = max(((rank0[k].double() - ref[k]).norm()
+                 / (ref[k] - initial[k].double()).norm().clamp_min(1e-30)).item()
+                for k in ref if "running" not in k)
+    result = {"wall_s": wall, "step_s": [r["stats"]["train_time"][0] for r in ranks],
+              "step_s_one_process": stats["train_time"][0], "train_loss_gap": loss_gap,
+              "grad_norm_gap": norm_gap, "chunk_norm_gap": slot_gap, "params_of_update": worst,
+              "launches": [r["launches"] for r in ranks], "launches_one_process": one,
+              "collectives": [r["collectives"] for r in ranks],
+              "params_equal": ranks[0]["params_sha256"] == ranks[1]["params_sha256"]}
+    log(f"  2 ranks in {wall:.1f} s (steps {result['step_s']} s; one process "
+        f"{result['step_s_one_process']:.3f} s); train_loss {loss_gap:.2e} (tol 1e-5), "
+        f"grad_norm * sqrt(2) {norm_gap:.2e} (tol 1e-4), {chunks} chunk norms by slot "
+        f"{slot_gap:.2e} (tol 1e-4), params {worst:.2e} of the update (tol 1e-3); launches "
+        f"{result['launches']} against {one}; collectives {result['collectives']}; ranks' "
+        f"params bitwise equal: {result['params_equal']}")
+    check(loss_gap <= 1e-5 and norm_gap <= 1e-4 and slot_gap <= 1e-4 and worst <= 1e-3,
+          "two ranks disagree with one process")
+    check(all(2 * r["launches"][k] == one[k] for r in ranks for k in KERNELS),
+          f"launches a rank {result['launches']}, not half of {one}")
+    check(result["params_equal"], "the two ranks end with different params")
+    check(all(c == {"all_reduce": 2, "broadcast": 0, "barrier": 0}
+              for c in result["collectives"]),
+          f"collectives {result['collectives']}, expected 1 all_reduce a step and 1 an evaluation")
+    return result
+
+
+def phase_dist_resnet152(torch, bn):
+    """10c: ``train_distributed_multinode.sh:8`` (``hyp=gradreg model=resnet152
+    impl/setup=distributed``, float32, chunks of 128, forward differences) in
+    an NCCL group of one, cut in data to 20 chunks, 1 step: 2 passes x the
+    model's BN layers x 20 launches of ``stats``, ``bwd_reduce`` and
+    ``bwd_apply``."""
+    from fullbatchtraining_tpu_torch import parallel
+    from fullbatchtraining_tpu_torch.data import epoch_layout
+    from fullbatchtraining_tpu_torch.models.layers import BatchNorm2d
+
+    extra = MULTINODE + dist_config()
+    world = parallel.setup_distributed(main_path_config(extra, "gradreg").impl.setup, DEVICE)
+    try:
+        bn.reset_counts()
+        cfg, bundle, _, state, stats = run_main_path(torch, extra, "gradreg")
+        counts = dict(bn.launches)
+    finally:
+        parallel.shutdown(world)
+    layers = sum(isinstance(m, BatchNorm2d) for m in state.model.modules())
+    blocks, chunks, sub = epoch_layout(bundle.size, bundle.batch_size, cfg.hyp.sub_batch)
+    result = {"step_s": stats["train_time"][0], "chunks": blocks * chunks, "sub": sub,
+              "ms_per_chunk": 1e3 * stats["train_time"][0] / (blocks * chunks),
+              "bn_layers": layers, "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "train_loss": stats["train_loss"], "valid_loss": stats["valid_loss"],
+              "launches": counts}
+    log(f"  ResNet-152, {layers} BN layers: step {result['step_s']:.3f} s over "
+        f"{blocks * chunks} chunks of {sub} ({result['ms_per_chunk']:.1f} ms a chunk); peak "
+        f"memory {result['peak_memory_gib']:.2f} GiB; train loss {stats['train_loss'][0]:.4f}, "
+        f"valid loss {stats['valid_loss'][0]:.4f}; launches {counts}")
+    check(blocks * chunks == 20 and sub == 128, f"{blocks * chunks} chunks of {sub}")
+    for name in KERNELS:
+        check(counts[name] == 2 * layers * 20,
+              f"{name}: {counts[name]} launches, expected 2 x {layers} x 20")
+    check(all(map(math.isfinite, stats["train_loss"] + stats["valid_loss"])), "non-finite loss")
+    return result
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write every measurement to this JSON file")
+    parser.add_argument("--rank", type=int, help=argparse.SUPPRESS)   # phase 10b's ranks
+    parser.add_argument("--port", type=int, help=argparse.SUPPRESS)
     args = parser.parse_args()
 
     import torch
@@ -1255,6 +1526,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if args.rank is not None:
+        return rank_main(torch, args.rank, args.port, args.out)
     from fullbatchtraining_tpu_torch.ops import _build, bn
 
     started = time.time()
@@ -1313,6 +1586,12 @@ def main() -> int:
     phase("[9e] the host path of semi-stochastic staging")
     baked_host = phase_baked_host_path(torch, resident)
     del resident
+    phase("[10a] NCCL in a group of one: phase 4's step, bitwise the step without the group")
+    dist_one = phase_dist_one(torch, bn, full)
+    phase("[10b] two gloo ranks sharing the card: phase 3's float32 step against one process")
+    dist_two = phase_dist_two(torch, bn)
+    phase("[10c] train_distributed_multinode.sh:8: hyp=gradreg model=resnet152, 20 chunks of 128")
+    dist_152 = phase_dist_resnet152(torch, bn)
 
     kernels = []
     for name in ("stats", "apply", "bwd_reduce", "bwd_apply"):
@@ -1328,6 +1607,7 @@ def main() -> int:
             "launches_sgd": sgd["launches"][name],
             "launches_fb_shuffle": fb_practice["launches"][name],
             "launches_baked": baked_fb1["launches"][name],
+            "launches_dist": dist_one["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": "bytes", "library_ms": total("library_ms")})
@@ -1343,6 +1623,7 @@ def main() -> int:
              "small_kernel_rows": small_rows, "sgd_epoch": sgd_epoch, "sgd": sgd,
              "fb_practice": fb_practice, "resume": resume, "bake": bake,
              "baked_fb1": baked_fb1, "baked_sgd": baked_sgd, "baked_host": baked_host,
+             "dist_one": dist_one, "dist_two": dist_two, "dist_resnet152": dist_152,
              "kernels": kernels}, indent=1))
     log(f"all phases passed in {time.time() - started:.0f} s")
     log(card)

@@ -4,8 +4,10 @@ epoch layout."""
 from .augmentations import crop_flip, draw_crop_flip, make_augment_fn, make_eval_transform, normalize
 from .baked import BakedDataset, bake_dataset
 from .datasets import ArrayDataset, construct_datasets
-from .pipeline import DataBundle, construct_databundle, epoch_layout, epoch_order, layout_epoch
+from .pipeline import (DataBundle, construct_databundle, epoch_layout, epoch_order, layout_epoch,
+                       rank_rows)
 
 __all__ = ["ArrayDataset", "BakedDataset", "DataBundle", "bake_dataset", "construct_datasets",
            "construct_databundle", "crop_flip", "draw_crop_flip", "epoch_layout", "epoch_order",
-           "layout_epoch", "make_augment_fn", "make_eval_transform", "normalize"]
+           "layout_epoch", "make_augment_fn", "make_eval_transform", "normalize",
+           "rank_rows"]

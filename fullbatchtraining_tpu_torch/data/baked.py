@@ -16,8 +16,9 @@ AutoAugment, AugMix) on the host through :mod:`.policy_augment`, each run
 of the others on the device through :func:`.augmentations.make_augment_fn`.
 A crop/flip store therefore matches the JAX package's in distribution
 (torch's generator draws, not JAX's), and a policy-only store matches it
-byte for byte. Single process: the multi-host bake comes with data
-parallelism.
+byte for byte. With several ranks, rank 0 bakes and every rank waits at a
+barrier, then reads the store: ``data.db.path`` must be a filesystem the
+ranks share.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..parallel import World, barrier, broadcast, current_world
 from ..utils import resolve_device
 from .augmentations import POLICY_KEYS, augmented_hw, make_augment_fn
 from .datasets import ArrayDataset
@@ -66,16 +68,38 @@ def _db_dir(cfg_db, cfg_data, size: int, aug_cfg, tmp_token=None) -> Path:
 
 
 def bake_dataset(train: ArrayDataset, cfg_data, cfg_db, seed: int = 0,
-                 device="cuda") -> Path:
+                 device="cuda", world: World | None = None) -> Path:
     """Bake the store for ``train`` unless it exists (or rebuild it with
     ``rebuild_existing_database``); returns its directory. The non-policy
     augmentations run on ``device``. A file lock keeps two jobs from
-    writing one store; the second finds ``meta.json`` and reuses it."""
+    writing one store; the second finds ``meta.json`` and reuses it.
+
+    With several ranks in ``world`` (the default process group's by
+    default), rank 0 bakes and every rank waits at a barrier; a temporary
+    store takes rank 0's pid as its suffix on every rank. A rank that finds
+    no ``meta.json`` after the barrier raises."""
+    world = world if world is not None else current_world()
+    if world.size == 1:
+        return _bake_locked(train, cfg_data, cfg_db, seed, device)
+    token = (broadcast(world, os.getpid()) if cfg_db.get("temporary_database", False)
+             else None)
+    out_dir = _db_dir(cfg_db, cfg_data, len(train), cfg_db.augmentations_train, token)
+    if world.rank == 0:
+        _bake_locked(train, cfg_data, cfg_db, seed, device, token)
+    barrier(world)
+    if not (out_dir / "meta.json").exists():
+        raise RuntimeError(f"baked store {out_dir} is missing on rank {world.rank} after rank "
+                           "0's bake: data.db.path must be a filesystem every rank shares")
+    return out_dir
+
+
+def _bake_locked(train: ArrayDataset, cfg_data, cfg_db, seed: int, device,
+                 tmp_token=None) -> Path:
     rounds = int(cfg_db.rounds)
     # an explicit null means a clean replicated store, not the data group's
     # augmentations
     aug_cfg = cfg_db.augmentations_train
-    out_dir = _db_dir(cfg_db, cfg_data, len(train), aug_cfg)
+    out_dir = _db_dir(cfg_db, cfg_data, len(train), aug_cfg, tmp_token)
     meta_file = out_dir / "meta.json"
     if meta_file.exists() and not cfg_db.rebuild_existing_database:
         return out_dir

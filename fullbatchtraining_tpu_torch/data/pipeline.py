@@ -6,7 +6,10 @@ The training set lives as one uint8 array; an optimizer step consumes it as
 ``hyp.shuffle``, in the step's :func:`epoch_order`, and the trainer keeps it
 resident on the device. With ``data.db`` the set is the baked store's
 ``rounds x size`` images (``data/baked.py``), whose augmentations are fixed
-at bake time; a semi-stochastic step reads one of its rounds.
+at bake time; a semi-stochastic step reads one of its rounds. With ``W``
+ranks a global block is ``W`` per-rank blocks, and rank ``r`` trains on
+``[:, r]`` of the step's rows laid out ``(blocks, W, chunks, sub)``
+(:func:`rank_rows`).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Callable
 
 import numpy as np
 
+from ..parallel import World, current_world
 from .augmentations import make_augment_fn, make_eval_transform
 from .baked import BakedDataset, bake_dataset
 from .datasets import ArrayDataset, construct_datasets
@@ -47,21 +51,24 @@ class DataBundle:
 
 
 def construct_databundle(cfg_data, cfg_impl=None, cfg_hyp=None, dryrun: bool = False,
-                         seed: int = 0, device="cuda") -> DataBundle:
+                         seed: int = 0, device="cuda", world: World | None = None) -> DataBundle:
     """Datasets + augmentation fns + layout constants for one data config.
 
     With ``data.db`` the store is baked (seeded by ``seed``, its non-policy
-    augmentations on ``device``) or reused, and the training set becomes its
-    flat ``rounds x size`` images, with no augmentation at train time.
+    augmentations on ``device``; by rank 0 of ``world``, the default process
+    group's by default) or reused, and the training set becomes its flat
+    ``rounds x size`` images, with no augmentation at train time. A
+    temporary store goes when rank 0's process exits.
     ``cfg_impl`` and ``cfg_hyp`` are accepted for call-site symmetry with
     the JAX package; nothing of the data path reads them."""
+    world = world if world is not None else current_world()
     train, valid = construct_datasets(cfg_data, dryrun=dryrun)
     baked = None
     use_db = cfg_data.db.name is not None
     if use_db:
         baked = BakedDataset(bake_dataset(train, cfg_data, cfg_data.db, seed=seed,
-                                          device=device))
-        if cfg_data.db.get("temporary_database", False):
+                                          device=device, world=world))
+        if cfg_data.db.get("temporary_database", False) and world.rank == 0:
             atexit.register(baked.cleanup)  # the store goes when the process exits
         train = baked.flat()
     return DataBundle(
@@ -101,6 +108,16 @@ def epoch_layout(total: int, batch_size: int, sub_batch: int, num_devices: int =
     if dryrun:
         num_blocks = 1
     return num_blocks, batch_size // sub, sub
+
+
+def rank_rows(order, num_blocks: int, chunks: int, sub: int, num_devices: int = 1,
+              rank: int = 0) -> np.ndarray:
+    """The entries of ``order`` that rank ``rank`` trains on, in order:
+    ``[:, rank]`` of its first ``num_blocks * num_devices * chunks * sub``
+    laid out as ``(blocks, devices, chunks * sub)`` (:func:`layout_epoch`)."""
+    per = chunks * sub
+    head = np.asarray(order)[:num_blocks * num_devices * per]
+    return head.reshape(num_blocks, num_devices, per)[:, rank].reshape(-1)
 
 
 def layout_epoch(images, labels, num_blocks: int, chunks: int, sub: int, num_devices: int = 1):

@@ -1,4 +1,4 @@
-"""Full-batch and stochastic training on one card
+"""Full-batch and stochastic training on one card or across ranks
 (``fullbatchtraining_tpu/training/training.py``).
 
 One full-batch optimizer step averages the gradient of the whole training
@@ -27,10 +27,16 @@ it, gathered on the device. On a baked store (``data.db``) a full-batch step
 reads all ``rounds x size`` images; with ``hyp.train_semi_stochastic`` step
 ``s`` reads round ``s % rounds`` alone.
 
-These are the JAX package's semantics for one device with
+These are the JAX package's semantics for a mesh of ``W`` devices with
 ``impl.block_grouping=1`` (its grouped scan is exact, so it computes the same
-thing). ``impl.mixed_precision`` runs the forward under bf16 autocast with
-fp32 parameters and accumulators; logits are cast to the stat dtype.
+thing), ``W`` the size of the run's :class:`~..parallel.World`. Rank ``r``
+trains on ``[:, r]`` of the step's rows laid out ``(blocks, W, chunks,
+sub)`` with its own augmentation draws and BN running stats; a full-batch
+pass ends in one ``all_reduce`` over a bucket of the gradient mean, the BN
+stats, the scalar stats and per-chunk norm slots, and a stochastic update
+takes the mean of the ranks' block gradients. ``impl.mixed_precision`` runs
+the forward under bf16 autocast with fp32 parameters and accumulators;
+logits are cast to the stat dtype.
 """
 
 from __future__ import annotations
@@ -48,8 +54,9 @@ from torch import nn
 from torch.func import functional_call
 
 from ..data.augmentations import normalize as normalize_images
-from ..data.pipeline import DataBundle, epoch_layout, epoch_order
+from ..data.pipeline import DataBundle, epoch_layout, epoch_order, rank_rows
 from ..models.modules import get_loss_fn
+from ..parallel import World, all_reduce, all_reduce_parts, barrier, current_world
 from ..utils import resolve_device
 from .grad_reg import make_grad_regularizer, tree_add_scaled, tree_sqnorm
 from .optimizers import make_lr_schedule, make_optimizer
@@ -59,6 +66,10 @@ log = logging.getLogger(__name__)
 
 _DTYPES = {"float": torch.float32, "float32": torch.float32, "float64": torch.float64,
            "bfloat16": torch.bfloat16, "double": torch.float64}
+# Generator streams: rank r draws its augmentations from stream r, the
+# gradient noise comes from one stream that no rank reaches
+_NOISE_STREAM = 1 << 32
+_STREAM_STRIDE = 0x9E3779B97F4A7C15   # an odd 64-bit constant
 
 
 @dataclasses.dataclass
@@ -73,7 +84,6 @@ def check_slice(cfg) -> None:
     """Raise for modes the port does not run yet, naming their ROADMAP item."""
     hyp = cfg.hyp
     missing = [
-        (cfg.impl.setup.dist, "distributed setup", "Data parallelism"),
         (cfg.analysis.type is not None, "analysis.type", "Analysis"),
         (cfg.analysis.save_model_every_nth_step is not None,
          "analysis.save_model_every_nth_step", "Loss landscape and tools"),
@@ -102,32 +112,46 @@ def tree_clip_by_norm(tensors, max_norm, norm_type, eps=1e-6):
     return [t * scale for t in tensors], clipped, norm
 
 
-def upload_rows(images, count: int, device, piece: int) -> torch.Tensor:
-    """The first ``count`` rows of the host array ``images`` (a baked store's
-    memmap too) as one uint8 tensor on ``device``, copied ``piece`` rows at a
-    time: the host holds one piece, never the whole set, in RAM."""
-    out = torch.empty((count, *images.shape[1:]), dtype=torch.uint8, device=device)
-    for start in range(0, count, piece):
-        stop = min(start + piece, count)
-        out[start:stop].copy_(torch.from_numpy(np.array(images[start:stop])))
+def upload_rows(images, rows: np.ndarray, device, piece: int) -> torch.Tensor:
+    """Rows ``rows`` (indices, in order) of the host array ``images`` (a
+    baked store's memmap too) as one uint8 tensor on ``device``, copied
+    ``piece`` rows at a time: the host holds one piece, never the whole set,
+    in RAM. A piece of consecutive rows is read as a slice."""
+    out = torch.empty((len(rows), *images.shape[1:]), dtype=torch.uint8, device=device)
+    for start in range(0, len(rows), piece):
+        sel = rows[start:start + piece]
+        if np.all(np.diff(sel) == 1):
+            host = np.array(images[sel[0]:sel[-1] + 1])
+        else:
+            host = np.asarray(images[sel])
+        out[start:start + len(sel)].copy_(torch.from_numpy(host))
     return out
 
 
-def stage_validation(bundle: DataBundle, batch: int, device, dryrun: bool = False):
-    """Validation set padded to whole blocks of ``batch`` with per-sample
-    weights (0 on padding), resident on ``device``."""
+def stage_validation(bundle: DataBundle, batch: int, device, dryrun: bool = False,
+                     world: World | None = None):
+    """This rank's part of the validation set, resident on ``device``: the
+    set padded to a ``(blocks, W, batch)`` grid (``ceil(n / W)`` samples a
+    rank in whole blocks of ``batch``) with per-sample weights, 0 on
+    padding, and ``[:, rank]`` of it."""
+    world = world if world is not None else World()
     images, labels = bundle.valid.images, bundle.valid.labels
-    n = len(images)
-    blocks = 1 if dryrun else -(-n // batch)
-    total = blocks * batch
+    n, ranks = len(images), world.size
+    per_rank = -(-n // ranks)
+    blocks = 1 if dryrun else -(-per_rank // batch)
+    total = ranks * blocks * batch
     keep = min(n, total)
     pad = total - keep
     images = np.concatenate([images[:keep], np.zeros((pad, *images.shape[1:]), images.dtype)])
     labels = np.concatenate([labels[:keep], np.zeros(pad, labels.dtype)])
     weights = np.concatenate([np.ones(keep, np.float32), np.zeros(pad, np.float32)])
-    return (torch.from_numpy(images).to(device).view(blocks, batch, *images.shape[1:]),
-            torch.from_numpy(labels).long().to(device).view(blocks, batch),
-            torch.from_numpy(weights).to(device).view(blocks, batch))
+
+    def mine(a):
+        return a.reshape(blocks, ranks, batch, *a.shape[1:])[:, world.rank]
+
+    return (torch.from_numpy(np.ascontiguousarray(mine(images))).to(device),
+            torch.from_numpy(mine(labels)).long().to(device),
+            torch.from_numpy(np.ascontiguousarray(mine(weights))).to(device))
 
 
 def status_message(stats, step):
@@ -141,11 +165,14 @@ def status_message(stats, step):
 
 class Trainer:
     """The step functions of one run: ``full_step``, ``sam_step``,
-    ``stochastic_step`` and ``eval_step``, on the rows ``stage(step)`` gives."""
+    ``stochastic_step`` and ``eval_step``, on the rows ``stage(step)`` gives,
+    for one rank of ``world`` (the default process group's by default)."""
 
-    def __init__(self, model: nn.Module, bundle: DataBundle, cfg, device):
+    def __init__(self, model: nn.Module, bundle: DataBundle, cfg, device,
+                 world: World | None = None):
         hyp, impl = cfg.hyp, cfg.impl
         self.cfg, self.bundle, self.device = cfg, bundle, device
+        self.world = world if world is not None else current_world()
         self.param_dtype = _DTYPES[impl.dtype]
         self.acc_dtype = _DTYPES[impl.accumulation_dtype]
         compute = (_DTYPES[impl.compute_dtype] if impl.compute_dtype
@@ -162,7 +189,8 @@ class Trainer:
         self.semi = bool(hyp.train_semi_stochastic) and baked is not None
         self.round_size = baked.meta["size"] if self.semi else bundle.size
         self.num_blocks, self.chunks, self.sub = epoch_layout(
-            self.round_size, bundle.batch_size, hyp.sub_batch, 1, dryrun=cfg.dryrun)
+            self.round_size, bundle.batch_size, hyp.sub_batch, self.world.size,
+            dryrun=cfg.dryrun)
         self.criterion = get_loss_fn(hyp, bundle.batch_size)
         self.schedule = make_lr_schedule(hyp)
         self.weight_decay = float(hyp.optim.get("weight_decay", 0.0) or 0.0)
@@ -177,9 +205,10 @@ class Trainer:
         self.sam_rho = (float(hyp.optim_modification.rho)
                         if hyp.optim_modification.name == "SAM" else None)
 
-        # The epoch stays resident on the device as uint8: in order, one row
-        # per chunk; shuffled or semi-stochastic, as the flat [N, H, W, C]
-        # set that stage() gathers from in each step's order. A baked store
+        # The epoch stays resident on the device as uint8: in order, this
+        # rank's rows, one per chunk; shuffled or semi-stochastic, as the flat
+        # [N, H, W, C] set that stage() gathers this rank's rows from in each
+        # step's order. A baked store
         # goes up one round at a time from its memmap; a semi-stochastic one
         # above impl.device_shuffle_max_bytes (or without
         # impl.device_shuffle) stays on the host, and stage() uploads the
@@ -197,30 +226,37 @@ class Trainer:
                     f"a shuffled epoch of {images.nbytes} bytes, above "
                     f"impl.device_shuffle_max_bytes={limit}, is not ported yet "
                     "(ROADMAP.md, 'Streamed epochs and other datasets')")
-            self.images = upload_rows(images, len(images), device, piece)
+            self.images = upload_rows(images, np.arange(len(images)), device, piece)
             self.labels = torch.from_numpy(labels).long().to(device)
         else:
             rows = self.num_blocks * self.chunks
-            total = rows * self.sub
-            self.images = upload_rows(images, total, device, piece).view(
+            mine = self.rank_rows(np.arange(len(images)))
+            self.images = upload_rows(images, mine, device, piece).view(
                 rows, self.sub, *images.shape[1:])
-            self.labels = torch.from_numpy(labels[:total]).long().to(device).view(rows, self.sub)
+            self.labels = torch.from_numpy(labels[mine]).long().to(device).view(rows, self.sub)
+
+    def rank_rows(self, order) -> np.ndarray:
+        """The entries of the step order ``order`` that this rank trains on."""
+        return rank_rows(order, self.num_blocks, self.chunks, self.sub, self.world.size,
+                         self.world.rank)
 
     def stage(self, step: int):
-        """``(images, labels)`` of step ``step``, one row of ``sub`` samples a
-        chunk: the fixed rows in order, or the step's order (``arange`` when
-        unshuffled) gathered from the resident epoch, only the order (int64)
-        going to the device; semi-stochastic, that order offset into round
-        ``step % rounds``, or that round's rows in that order gathered on the
-        host and uploaded."""
+        """``(images, labels)`` of step ``step`` on this rank, one row of
+        ``sub`` samples a chunk: the fixed rows in order, or this rank's part
+        of the step's order (``arange`` when unshuffled) gathered from the
+        resident epoch, only the order (int64) going to the device;
+        semi-stochastic, that order offset into round ``step % rounds``, or
+        that round's rows in that order gathered on the host and uploaded.
+        With several ranks a step draws without replacement, as the JAX
+        package's multi-process runs do."""
         if not (self.shuffle or self.semi):
             return self.images, self.labels
         hyp = self.cfg.hyp
         rows = self.num_blocks * self.chunks
         n = self.round_size
-        order = (epoch_order(self.cfg.seed, step, n,
-                             bool(hyp.get("sample_with_replacement", False)))
-                 if self.shuffle else np.arange(n))[:rows * self.sub]
+        replace = bool(hyp.get("sample_with_replacement", False)) and self.world.size == 1
+        order = self.rank_rows(epoch_order(self.cfg.seed, step, n, replace)
+                               if self.shuffle else np.arange(n))
         if self.semi and self.images is None:
             ds = self.bundle.baked.round(step)
             images = torch.from_numpy(ds.images[order]).to(self.device)
@@ -245,9 +281,15 @@ class Trainer:
             logits = model(x)
         return logits.to(self.stat_dtype)
 
-    def generator(self, step: int) -> torch.Generator:
+    def generator(self, step: int, stream: int | None = None) -> torch.Generator:
+        """The generator of step ``step`` and ``stream``, by default this
+        rank's: stream ``s`` is seeded ``seed * 1_000_003 + step + s *
+        _STREAM_STRIDE`` (mod 2^64), so rank 0 draws as a single process does
+        and each rank differs, as the JAX package folds in the device."""
         seed = self.cfg.seed if self.cfg.seed is not None else 0
-        return torch.Generator(device=self.device).manual_seed(int(seed) * 1_000_003 + step)
+        stream = self.world.rank if stream is None else stream
+        value = (int(seed) * 1_000_003 + step + stream * _STREAM_STRIDE) % 2**64
+        return torch.Generator(device=self.device).manual_seed(value)
 
     def regrad(self, params, x, labels, create_graph=False):
         """Gradient of the chunk loss with respect to ``params`` (a list in
@@ -299,8 +341,8 @@ class Trainer:
     def accumulate(self, model, gen, lr, images, labels):
         """Streaming mean of the chunk gradients over the staged rows
         ``images``, ``labels``, BN stats carried along, each chunk's gradient
-        regularized at learning rate ``lr``. Returns (avg grads, metrics,
-        squared chunk norms)."""
+        regularized at learning rate ``lr``; then :meth:`reduce_pass`.
+        Returns (avg grads, metrics, squared chunk norms of every rank)."""
         hyp = self.cfg.hyp
         model.train()
         pre_grads = (self.pre_gradient(gen, images, labels)
@@ -327,25 +369,61 @@ class Trainer:
             spreds = spreds + (logits.argmax(-1) == lbls).to(self.stat_dtype).sum()
 
         sq_norms = torch.stack(sq_norms)
+        full_loss, param_norm = self.full_loss(lr, sloss, sq_norms)
+        if pre_grads is not None:
+            full_loss = full_loss + lr / 4 * hyp.grad_reg.acc_strength * tree_sqnorm(pre_grads)
+        clipped = torch.stack(clipped).sum() if clipped else torch.zeros_like(sloss)
+        return self.reduce_pass(model, avg, sloss, spreds, full_loss, sq_norms, clipped,
+                                param_norm)
+
+    def full_loss(self, lr, sloss, sq_norms):
+        """This rank's full loss of the pass (the JAX package's
+        ``_finalize_stats``, without the ``acc_strength`` term) and the
+        squared parameter norm."""
+        hyp = self.cfg.hyp
         param_norm = tree_sqnorm([p.detach() for p in self.params])
         full_loss = sloss / self.num_blocks + 0.5 * self.weight_decay * param_norm
         if hyp.grad_reg.block_strength != 0:
             full_loss = full_loss + lr / 4 * hyp.grad_reg.block_strength * sq_norms.mean()
-        if pre_grads is not None:
-            full_loss = full_loss + lr / 4 * hyp.grad_reg.acc_strength * tree_sqnorm(pre_grads)
+        return full_loss, param_norm
+
+    def reduce_pass(self, model, avg, sloss, spreds, full_loss, sq_norms, clipped, param_norm):
+        """The pass's one ``all_reduce`` (JAX ``_local_accumulate``): the sum
+        over the ranks of one bucket holding the gradient mean ``avg`` (or
+        nothing, for ``[]``), the model's BN running stats, the scalars
+        ``[loss, correct, full loss, mean squared chunk norm, clip count]``
+        and a ``[W, chunks]`` slot of squared chunk norms, zero but for this
+        rank's row. The gradient and the running stats are then divided by
+        ``W``, and the metrics read from the sums as the JAX package's
+        ``_metrics_from_package`` reads them, ``grad_norm`` included. Returns
+        (avg, metrics, every rank's squared chunk norms, rank-major)."""
+        world, ranks = self.world, self.world.size
+        buffers = [b for b in model.buffers() if b.is_floating_point()]
+        scalars = torch.stack([t.to(self.stat_dtype) for t in
+                               (sloss, spreds, full_loss, sq_norms.mean(), clipped)])
+        slots = sq_norms.new_zeros((ranks, len(sq_norms)))
+        slots[world.rank] = sq_norms
+        summed = all_reduce_parts(world, [*avg, *buffers, scalars, slots])
+        avg, scalars, slots = summed[:len(avg)], summed[-2], summed[-1]
+        if world.group is not None:
+            if avg:
+                torch._foreach_div_(avg, ranks)
+            with torch.no_grad():
+                for b, total in zip(buffers, summed[len(avg):-2]):
+                    b.copy_(total / ranks)
         metrics = {
-            "train_loss": sloss / self.num_blocks,
-            "train_acc": spreds / (self.num_blocks * self.chunks * self.sub),
+            "train_loss": scalars[0] / self.num_blocks / ranks,
+            "train_acc": scalars[1] / (self.num_blocks * self.chunks * self.sub * ranks),
             "param_norm": param_norm,
-            "grad_norm": torch.sqrt(sq_norms.mean()),
-            "full_loss": full_loss,
-            "clipped_batches": (torch.stack(clipped).sum() if clipped
-                                else torch.zeros((), device=self.device)),
+            "grad_norm": torch.sqrt(scalars[3]) / ranks,
+            "full_loss": scalars[2] / ranks,
+            "clipped_batches": scalars[4],
         }
-        return avg, metrics, sq_norms
+        return avg, metrics, slots.flatten()
 
     def modify_gradient(self, grads, gen, metrics):
-        """Norm bias, full-gradient clip and gradient noise."""
+        """Norm bias, full-gradient clip and gradient noise, drawn from
+        ``gen``, a generator that every rank seeds alike."""
         hyp = self.cfg.hyp
         params = [p.detach() for p in self.params]
         if hyp.norm_bias.strength > 0.0:
@@ -373,12 +451,14 @@ class Trainer:
 
     def gradient_eval(self, state: TrainState, images, labels):
         """The modified full-batch gradient at the model's params, from the
-        step's generator; the running stats carry on through the pass.
-        Returns (grads, metrics, squared chunk norms)."""
+        step's generators; the running stats carry on through the pass and
+        are then the ranks' mean. Returns (grads, metrics, squared chunk
+        norms of every rank)."""
         lr = self.schedule(state.step)
         gen = self.generator(state.step)
         grads, metrics, sq_norms = self.accumulate(state.model, gen, lr, images, labels)
-        grads, metrics = self.modify_gradient(grads, gen, metrics)
+        grads, metrics = self.modify_gradient(grads, self.generator(state.step, _NOISE_STREAM),
+                                              metrics)
         return grads, metrics, sq_norms
 
     def sgd_update(self, optimizer, grads, lr) -> None:
@@ -429,7 +509,9 @@ class Trainer:
         gradient ``g`` at the params, then the modified gradient at
         ``params + rho * g / ||g||``, whose pass carries on from the first
         one's running stats; SGD steps on that second gradient from the
-        original params. Metrics are the second pass's; no per-chunk norms."""
+        original params. Metrics are the second pass's; no per-chunk norms.
+        Two ``all_reduce`` a step: the second pass starts from the ranks'
+        mean of the first pass's running stats."""
         lr = self.schedule(state.step)
         grads, _, _ = self.gradient_eval(state, images, labels)
         norm = torch.sqrt(tree_sqnorm(grads))
@@ -445,10 +527,11 @@ class Trainer:
     # -- one stochastic step ----------------------------------------------------
     def block_grads(self, params, x, labels, lr):
         """The SGD update's gradient of one block: one train-mode forward over
-        the whole block at ``params`` (a list in ``self.params`` order), which
-        updates the model's running stats; the regularizer with no pre-pass;
-        ``hyp.grad_clip`` in the 2-norm. Returns (grads, loss, correct,
-        squared norm before the regularizer)."""
+        this rank's part of the block at ``params`` (a list in
+        ``self.params`` order), which updates the model's running stats; the
+        regularizer with no pre-pass; the ranks' mean, through one
+        ``all_reduce``; ``hyp.grad_clip`` in the 2-norm. Returns (grads, loss,
+        correct, squared norm before the regularizer)."""
         hyp = self.cfg.hyp
         state = dict(zip(self.param_names, params))
         logits = self.forward(lambda inputs: functional_call(self.model, state, (inputs,)), x)
@@ -457,6 +540,9 @@ class Trainer:
         sq_norm = tree_sqnorm(grads)
         if self.reg_fn is not None:
             grads = self.reg_fn(grads, params, x, labels, None, lr)
+        if self.world.group is not None:
+            grads = all_reduce_parts(self.world, grads)
+            torch._foreach_div_(grads, self.world.size)
         if hyp.grad_clip is not None:
             grads, _, _ = tree_clip_by_norm(grads, hyp.grad_clip, 2)
         correct = (logits.argmax(-1) == labels).to(self.stat_dtype).sum()
@@ -468,8 +554,9 @@ class Trainer:
         ``params + rho * g / ||g||``, a second pass over the block that
         carries on from the first one's running stats. One EMA update after
         the epoch. Metrics as ``full_step``'s, with one gradient norm per
-        block and no clipping count."""
-        hyp = self.cfg.hyp
+        block and no clipping count. The running stats stay this rank's
+        through the epoch; one :meth:`reduce_pass` at its end averages them
+        and sums the stats."""
         lr = self.schedule(state.step)
         gen = self.generator(state.step)
         state.model.train()
@@ -489,29 +576,22 @@ class Trainer:
             sloss = sloss + loss
             spreds = spreds + correct
             sq_norms.append(sq_norm)
-        self.ema_update(state)
-        state.step += 1
 
         sq_norms = torch.stack(sq_norms)
-        param_norm = tree_sqnorm([p.detach() for p in self.params])
-        full_loss = sloss / self.num_blocks + 0.5 * self.weight_decay * param_norm
-        if hyp.grad_reg.block_strength != 0:
-            full_loss = full_loss + lr / 4 * hyp.grad_reg.block_strength * sq_norms.mean()
-        return {
-            "train_loss": sloss / self.num_blocks,
-            "train_acc": spreds / (self.num_blocks * self.chunks * self.sub),
-            "param_norm": param_norm,
-            "grad_norm": torch.sqrt(sq_norms.mean()),
-            "full_loss": full_loss,
-            "clipped_batches": torch.zeros((), device=self.device),
-            "lr": lr,
-            "grad_norms_per_chunk": torch.sqrt(sq_norms),
-        }
+        full_loss, param_norm = self.full_loss(lr, sloss, sq_norms)
+        _, metrics, sq_norms = self.reduce_pass(state.model, [], sloss, spreds, full_loss,
+                                                sq_norms, torch.zeros_like(sloss), param_norm)
+        self.ema_update(state)
+        state.step += 1
+        metrics["lr"] = lr
+        metrics["grad_norms_per_chunk"] = torch.sqrt(sq_norms)
+        return metrics
 
     # -- evaluation ------------------------------------------------------------
     @torch.no_grad()
     def eval_step(self, model, images, labels, weights):
-        """Weighted loss and accuracy over the staged validation blocks."""
+        """Weighted loss and accuracy over the staged validation blocks of
+        every rank: this rank's sums, then one ``all_reduce``."""
         model.eval()
         sums = torch.zeros(3, dtype=self.stat_dtype, device=self.device)
         for blk in range(images.shape[0]):
@@ -527,6 +607,7 @@ class Trainer:
             correct = (outputs.argmax(-1) == lbls).to(torch.float32) * w
             sums += torch.stack([(losses * w).sum(), correct.sum(), w.sum()]).to(self.stat_dtype)
         model.train()
+        all_reduce(self.world, sums)
         return {"valid_loss": sums[0] / sums[2], "valid_acc": sums[1] / sums[2]}
 
 
@@ -555,35 +636,47 @@ def configure_backends(cfg) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def train(model: nn.Module, bundle: DataBundle, cfg, device="cuda", stats=None):
+def train(model: nn.Module, bundle: DataBundle, cfg, device="cuda", stats=None,
+          world: World | None = None):
     """Train ``model`` from its current weights per ``cfg.hyp``/``cfg.impl``,
-    or from the checkpoint ``impl.checkpoint.name`` where one exists.
+    or from the checkpoint ``impl.checkpoint.name`` where one exists, as one
+    rank of ``world`` (the default process group's by default; every rank
+    starts from the same weights).
 
     Returns ``(state, stats)``: the final :class:`TrainState` and the stats
     dict of lists (the JAX package's keys, ``grad_norm_train_{i}`` per chunk
-    or, in a stochastic step, per block)."""
+    or, in a stochastic step, per block, every rank's in rank-major order).
+    Only rank 0 writes checkpoints; every rank resumes from the same file."""
     device = resolve_device(device)
+    world = world if world is not None else current_world()
     check_slice(cfg)
     configure_backends(cfg)
-    trainer = Trainer(model, bundle, cfg, device)
+    trainer = Trainer(model, bundle, cfg, device, world)
     state = TrainState(step=0, model=model, optimizer=make_optimizer(model, cfg.hyp),
                        ema_model=copy.deepcopy(model) if cfg.hyp.evaluate_ema else None)
-    writer = None
+    file = writer = None
     if cfg.impl.checkpoint.name is not None:
-        writer = CheckpointWriter(checkpoint_file(cfg),
-                                  bool(cfg.impl.checkpoint.get("async_save", False)))
-        load_checkpoint(state, writer.file, cfg.hyp.steps)
+        file = checkpoint_file(cfg)
+        if world.rank == 0:
+            writer = CheckpointWriter(file, bool(cfg.impl.checkpoint.get("async_save", False)))
+        # rank 0 writes only after its first step's collectives, which every
+        # rank enters after this load
+        load_checkpoint(state, file, cfg.hyp.steps)
     try:
-        return _train_loop(trainer, state, bundle, cfg, writer,
-                           stats if stats is not None else defaultdict(list))
+        result = _train_loop(trainer, state, bundle, cfg, writer,
+                             stats if stats is not None else defaultdict(list))
     finally:
         if writer is not None:
-            writer.close()  # the last checkpoint is on disk when train() returns
+            writer.close()
+    if file is not None:
+        barrier(world)  # the last checkpoint is on disk when train() returns, on every rank
+    return result
 
 
 def _train_loop(trainer: Trainer, state: TrainState, bundle: DataBundle, cfg, writer, stats):
     hyp = cfg.hyp
-    val_data = stage_validation(bundle, bundle.batch_size, trainer.device, dryrun=cfg.dryrun)
+    val_data = stage_validation(bundle, bundle.batch_size, trainer.device, dryrun=cfg.dryrun,
+                                world=trainer.world)
     while state.step < hyp.steps:
         t0 = time.time()
         # the configured mode before hyp.train_switch_stochastic, the other
@@ -617,6 +710,7 @@ def _train_loop(trainer: Trainer, state: TrainState, bundle: DataBundle, cfg, wr
 
         log.info(status_message(stats, step))
 
+        # every rank reads the same reduced metrics, so all take one branch
         if not np.isfinite(stats["train_loss"][-1]):
             log.info("Terminating iterations due to divergence of loss...")
             break

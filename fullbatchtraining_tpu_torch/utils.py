@@ -16,6 +16,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .parallel import World, broadcast
+
 log = logging.getLogger(__name__)
 
 _NOW_PATTERN = re.compile(r"\$\{now:([^}]*)\}")
@@ -31,12 +33,18 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def job_startup(cfg, script_name: str = "job"):
+def job_startup(cfg, script_name: str = "job", world: World | None = None):
     """Finalize the config, create and enter ``<base_dir>/<date>/<time>``
-    (Hydra's run dir, or ``hydra.run.dir``), log to stdout and a file, seed."""
+    (Hydra's run dir, or ``hydra.run.dir``; ``_rank<r>`` appended on ranks
+    other than 0), log to stdout and a file, seed. An unset ``seed`` is drawn
+    from the system's entropy; with several ranks in ``world``, rank 0's
+    seed wins on every rank, through one broadcast."""
+    world = world if world is not None else World()
     cfg.original_cwd = os.getcwd()
     if cfg.seed is None:
         cfg.seed = random.SystemRandom().randint(0, 2**31 - 1)
+    if world.size > 1:
+        cfg.seed = broadcast(world, int(cfg.seed))
     hydra = cfg.pop("_hydra", {})
     now = datetime.datetime.now()
     if hydra.get("run.dir") is not None:
@@ -44,6 +52,8 @@ def job_startup(cfg, script_name: str = "job"):
                                         str(hydra["run.dir"])))
     else:
         run_dir = Path(cfg.base_dir) / now.strftime("%Y-%m-%d") / now.strftime("%H-%M-%S.%f")
+    if world.rank:
+        run_dir = run_dir.with_name(f"{run_dir.name}_rank{world.rank}")
     run_dir = run_dir.resolve()  # the log path must survive the chdir below
     run_dir.mkdir(parents=True, exist_ok=True)
     if hydra.get("job.chdir", True):

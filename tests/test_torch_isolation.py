@@ -27,7 +27,8 @@ def _modules():
 
 def test_importing_every_module_loads_no_jax():
     assert {"fullbatchtraining_tpu_torch.data.baked",
-            "fullbatchtraining_tpu_torch.data.policy_augment"} <= set(_modules())
+            "fullbatchtraining_tpu_torch.data.policy_augment",
+            "fullbatchtraining_tpu_torch.parallel"} <= set(_modules())
     script = f"""
 import importlib, sys
 for name in {_modules()!r}:
@@ -81,6 +82,16 @@ def test_cli_dryrun(device, tmp_path):
         assert "torch.cuda.is_available() is False" in run.stderr
 
 
+def test_cli_dryrun_distributed_world_of_one(tmp_path):
+    """``impl/setup=distributed`` with nothing to rendezvous with runs as a
+    gloo group of one process on the CPU."""
+    args = TINY + [f"base_dir={tmp_path}", "+impl.device=cpu", "impl/setup=distributed"]
+    run = subprocess.run([sys.executable, "-m", "fullbatchtraining_tpu_torch", *args],
+                         cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stdout + run.stderr
+    assert "rank 0 of 1" in run.stdout and "Final validation accuracy" in run.stdout
+
+
 def test_cli_dryrun_default_recipe(tmp_path):
     """With no ``hyp=`` override the CLI runs ``config/cfg.yaml``'s default,
     ``hyp=base_sgd``: stochastic, shuffled SGD."""
@@ -99,7 +110,6 @@ BOUNDARIES = {
     "fista": ["hyp/optim=fista"],
     # the shuffled epoch stays on the card whole; a larger one would stream
     "shuffle-over-budget": ["hyp.shuffle=True", "impl.device_shuffle_max_bytes=1"],
-    "distributed": ["impl/setup=distributed"],
     "analysis": ["analysis=full"],
     "trace": ["impl.trace=True"],
     "float16-compute": ["impl.compute_dtype=float16"],

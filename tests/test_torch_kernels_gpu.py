@@ -287,3 +287,49 @@ def test_stochastic_step_launches_a_kernel_per_layer_and_block(cuda):
         ("stats", "bwd_reduce", "bwd_apply"), 20 * blocks)
     assert bn.launches["apply"] == 20 * blocks + 20 * eval_blocks
     assert bn.vector_launches == bn.launches
+
+
+def test_nccl_group_of_one_step_is_bitwise_the_step_without(cuda):
+    """One ``hyp=fb1`` step (ResNet-18 at width 8, 512 images in chunks of
+    128) through ``train()`` in an NCCL group of one: one ``all_reduce`` for
+    the step and one for its evaluation, the kernels launched as without the
+    group, and params, running stats and stats bitwise those of the step
+    without the group."""
+    import socket
+    from pathlib import Path
+
+    from fullbatchtraining_tpu_torch import parallel
+    from fullbatchtraining_tpu_torch.config import load_config
+    from fullbatchtraining_tpu_torch.data import construct_databundle
+    from fullbatchtraining_tpu_torch.models import construct_model
+    from fullbatchtraining_tpu_torch.training import train
+
+    root = Path(__file__).resolve().parent.parent
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    base = ["model=resnet18", "model.width=8", "hyp=fb1", "data.size=512", "hyp.steps=1",
+            "hyp.warmup=0", f"data.path={root / 'build' / 'no_data'}", "seed=0"]
+    runs = []
+    for setup in (["impl/setup=distributed", f"impl.setup.url=127.0.0.1:{port}"], []):
+        cfg = load_config(root / "config", overrides=base + setup)
+        world = parallel.setup_distributed(cfg.impl.setup, "cuda")
+        try:
+            bundle = construct_databundle(cfg.data)
+            model = construct_model(cfg.model, bundle.channels, bundle.classes)
+            bn.reset_counts()
+            parallel.reset_counts()
+            state, stats = train(model, bundle, cfg, device="cuda")
+            torch.cuda.synchronize()
+            runs.append((state.model.state_dict(), stats, dict(bn.launches),
+                         dict(parallel.calls), world.size))
+        finally:
+            parallel.shutdown(world)
+    (ours, ours_stats, ours_launches, calls, size), (ref, ref_stats, ref_launches, none, _) = runs
+    assert size == 1
+    assert calls == {"all_reduce": 2, "broadcast": 0, "barrier": 0}
+    assert none == dict.fromkeys(calls, 0)
+    assert ours_launches == ref_launches and ref_launches["stats"] == 20 * 4
+    assert [k for k in ref if not torch.equal(ours[k], ref[k])] == []
+    assert {k: v for k, v in ours_stats.items() if k != "train_time"} == {
+        k: v for k, v in ref_stats.items() if k != "train_time"}
