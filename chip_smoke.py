@@ -54,7 +54,7 @@ Phases, in order; any failure exits non-zero before the result lines:
    by a few ulps; in float64 all 16 within 1e-10. (c) ``hyp=base_sgd`` as its yaml has it
    through ``training.train``: 2 steps of 390 updates, exact launch counts,
    the profile of an epoch cut to 50 updates. (d) The paper's "FB in practice" step,
-   ``hyp=gradreg data.batch_size=32 hyp.shuffle=True`` in bf16, cut to 390
+   ``hyp=gradreg data.batch_size=32 hyp.shuffle=True`` in bf16, cut to 195
    of its 1562 chunks, exact launch counts, the profile of a step cut to 32
    chunks; one shuffled
    ``hyp=fb1`` step with phase 4's launches and its epoch gather time. (e) A
@@ -85,14 +85,31 @@ Phases, in order; any failure exits non-zero before the result lines:
    the ranks' params bitwise equal. (c) ``train_distributed_multinode.sh:8``,
    ``hyp=gradreg model=resnet152`` in a group of one, cut to 20 chunks of
    128: 2 passes x its BN layers x 20 launches of each backward kernel.
+11. Other datasets and streamed epochs, bf16. Phase 2's check at the BN
+   shape of ResNet-18's first stage at 224 px (128 images, C = 64). (a)
+   ``data=TinyImageNet hyp=fb1`` at full width (100,000 synthetic images of
+   64x64, chunks of 2048, resident): the synthetic set's first-use time, 2
+   steps, exact launches, peak memory, a profile of the warm step. (b) The
+   same with the epoch streamed from the host (``impl.hbm_epoch_max_bytes``
+   512 MiB): bitwise (a)'s params, BN stats and stats, the epoch's bytes
+   host to device a step, the copy stream's time in a profile; one
+   shuffled step streamed (host gather) against the resident device
+   gather, bitwise. (c) ``data=ImageNet`` as its yaml has it, cut to 4,096
+   images: ``resize`` and ``resized_crop`` on the card against the CPU; one
+   step and one evaluation with the epoch and the validation set streamed
+   and 4 sub-chunks a block, the evaluation against a resident one in
+   whole blocks. (d) A PIL-written JPEG tree loaded twice through ``python
+   -m fullbatchtraining_tpu_torch data=ImageNet dryrun=True``: the second
+   run reads the first one's cache.
 
 The last lines are the card line, a JSON object of per-kernel numbers (their
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` sum the 20 BN layers of
-one bf16 chunk of 2048 images; ``launches`` counts phase 4,
-``launches_gradreg`` phase 7, ``launches_sgd`` phase 8c,
-``launches_fb_shuffle`` phase 8d, ``launches_baked`` phase 9b and
-``launches_dist`` phase 10a), and
-``{"ok": true, "device": {...}}``.
+one bf16 chunk of 2048 images, ``stem_224`` times the 224 px first-stage
+layer alone; ``launches`` counts phase 4, ``launches_gradreg`` phase 7,
+``launches_sgd`` phase 8c, ``launches_fb_shuffle`` phase 8d,
+``launches_baked`` phase 9b, ``launches_dist`` phase 10a,
+``launches_tinyimagenet`` 11a, ``launches_streamed`` 11b and
+``launches_imagenet`` 11c), and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -197,16 +214,16 @@ def access_bytes(bn, name, before, itemsize) -> int:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def phase_kernels(torch, bn, chunk=CHUNK):
-    """Every kernel against its plain version at the BN shapes of a chunk of
-    ``chunk`` images, with its times."""
+def phase_kernels(torch, bn, chunk=CHUNK, stages=STAGES):
+    """Every kernel against its plain version at the BN shapes ``stages``
+    (``(H*W, C)``) of a chunk of ``chunk`` images, with its times."""
     import torch.nn.functional as F
 
     rows = []
     dev = torch.device(DEVICE)
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
-        for hw, c in STAGES:
+        for hw, c in stages:
             m = chunk * hw
             g = torch.Generator(device=dev).manual_seed(hw + c)
             x = (torch.randn((m, c), generator=g, device=dev) * 1.5 + 0.3).to(dtype)
@@ -377,14 +394,17 @@ def main_path_config(extra, hyp="fb1"):
         f"data.path={ROOT / 'build' / 'no_cifar_here'}", "name=chip_smoke"] + list(extra))
 
 
-def run_main_path(torch, extra, hyp="fb1"):
+def run_main_path(torch, extra, hyp="fb1", bundle=None):
+    """``training.train`` of ``main_path_config(extra, hyp)`` from its seeded
+    weights, on ``bundle`` where given (a bundle depends on ``data.*`` only)."""
     from fullbatchtraining_tpu_torch.data import construct_databundle
     from fullbatchtraining_tpu_torch.models import construct_model
     from fullbatchtraining_tpu_torch.training import train
 
     cfg = main_path_config(extra, hyp)
-    bundle = construct_databundle(cfg.data, cfg.impl, cfg.hyp, dryrun=cfg.dryrun, seed=cfg.seed,
-                                  device=DEVICE)
+    if bundle is None:
+        bundle = construct_databundle(cfg.data, cfg.impl, cfg.hyp, dryrun=cfg.dryrun,
+                                      seed=cfg.seed, device=DEVICE)
     model = construct_model(cfg.model, bundle.channels, bundle.classes, seed=cfg.seed)
     initial = copy.deepcopy(model.state_dict())
     torch.cuda.reset_peak_memory_stats()
@@ -514,13 +534,17 @@ BN_KERNEL_NAMES = ("stats_partial", "bwd_reduce_partial", "finalize_partials", "
 CONV_NAMES = ("conv", "gemm", "sm90", "cutlass", "xmma", "cudnn", "implicit", "winograd")
 
 
-def phase_profile(torch, hyp="fb1", extra=(), base=FULL_WIDTH):
+def phase_profile(torch, hyp="fb1", extra=(), base=FULL_WIDTH, wall_ms=None, warm_up=True,
+                  bundle=None):
     """One step of ``base`` (full width) under torch.profiler, after a
-    warm-up step outside it: device time by kernel class, and the device's
-    busy share (that step's kernel time over the wall time of the next step,
-    run without the profiler; one stream, so kernels do not overlap); peak
-    memory over the three steps. A stochastic recipe's step is its epoch of
-    SGD updates."""
+    warm-up step outside it (none with ``warm_up=False``, where the process
+    already ran the same shapes): device time by kernel class, and the
+    device's busy share (that step's kernel time over the wall time of the
+    next step, run without the profiler, or ``wall_ms`` where given; kernels
+    run on one stream and do not overlap, the copies of a streamed epoch run
+    on a side stream and are left out of the share and timed apart,
+    ``h2d_ms``); peak memory over the steps. A stochastic recipe's step is
+    its epoch of SGD updates."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -529,7 +553,9 @@ def phase_profile(torch, hyp="fb1", extra=(), base=FULL_WIDTH):
     from fullbatchtraining_tpu_torch.training import training
 
     cfg = main_path_config(list(base) + list(extra), hyp)
-    bundle = construct_databundle(cfg.data, cfg.impl, cfg.hyp, dryrun=cfg.dryrun, seed=cfg.seed)
+    if bundle is None:
+        bundle = construct_databundle(cfg.data, cfg.impl, cfg.hyp, dryrun=cfg.dryrun,
+                                      seed=cfg.seed)
     model = construct_model(cfg.model, bundle.channels, bundle.classes, seed=cfg.seed)
     training.configure_backends(cfg)
     trainer = training.Trainer(model, bundle, cfg, torch.device(DEVICE))
@@ -541,26 +567,31 @@ def phase_profile(torch, hyp="fb1", extra=(), base=FULL_WIDTH):
         step_fn(state, *trainer.stage(state.step))
 
     torch.cuda.reset_peak_memory_stats()
-    step()
-    torch.cuda.synchronize()
+    if warm_up:
+        step()
+        torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         step()
         torch.cuda.synchronize()
         traced_ms = 1e3 * (time.time() - t0)
-    t0 = time.time()
-    step()
-    torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.time() - t0)
+    if wall_ms is None:
+        t0 = time.time()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.time() - t0)
     kernels = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
                if getattr(e, "device_type", None) == DeviceType.CUDA]
-    total = sum(t for _, t, _ in kernels)
+    h2d_ms = sum(t for name, t, _ in kernels if name.startswith("Memcpy HtoD (Pinned"))
+    total = sum(t for _, t, _ in kernels) - h2d_ms
     if not total:
         log("  the profiler recorded no device time")
         return None
     classes = {"bn kernels": 0.0, "convolutions": 0.0, "other": 0.0}
     for name, t, _ in kernels:
         low = name.lower()
+        if name.startswith("Memcpy HtoD (Pinned"):
+            continue
         if any(k in name for k in BN_KERNEL_NAMES):
             classes["bn kernels"] += t
         elif any(k in low for k in CONV_NAMES):
@@ -568,13 +599,14 @@ def phase_profile(torch, hyp="fb1", extra=(), base=FULL_WIDTH):
         else:
             classes["other"] += t
     result = {"wall_ms": wall_ms, "traced_wall_ms": traced_ms, "device_ms": total,
-              "busy_share": total / wall_ms, "by_class_ms": classes,
+              "busy_share": total / wall_ms, "by_class_ms": classes, "h2d_ms": h2d_ms,
               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
               "top": sorted(kernels, key=lambda k: -k[1])[:12]}
     log(f"  device {total:.1f} ms in the traced step (wall {traced_ms:.1f} ms under the "
         f"profiler); untraced step wall {wall_ms:.1f} ms; busy share {total / wall_ms:.3f}; "
         f"peak memory {result['peak_memory_gib']:.2f} GiB; "
-        + ", ".join(f"{k} {v:.1f} ms" for k, v in classes.items()))
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in classes.items())
+        + (f"; pinned host-to-device copies {h2d_ms:.1f} ms" if h2d_ms else ""))
     for name, t, n in result["top"]:
         log(f"    {t:9.2f} ms  {n:6d}x  {name[:110]}")
     return result
@@ -691,8 +723,11 @@ def phase_gradreg_full_width(torch, bn, fb1):
     check(auto["vector_launches"] == auto["launches"],
           "an autograd-step launch did not take 16 bytes a thread")
     result["autograd"] = auto
+    # the train() step above warmed the process for these shapes and timed
+    # an untraced step: one traced step is enough
     result["autograd profile"] = phase_profile(torch, "gradreg",
-                                               [GRADREG_VARIANT.format("autograd")])
+                                               [GRADREG_VARIANT.format("autograd")],
+                                               wall_ms=1e3 * auto["step_s"], warm_up=False)
     result["regularizer size"] = regularizer_sizes(torch)
     return result
 
@@ -747,15 +782,15 @@ def regularizer_sizes(torch):
 SGD_BATCHES = (128, 32)   # hyp=base_sgd's blocks; the paper's "FB in practice" chunks
 SGD_EPOCH = ["hyp.warmup=0", "hyp.steps=1", "data.size=2048"]     # 16 updates, float32
 SGD_FULL = ["hyp.steps=2"]                                         # the yaml as it stands
-# Cuts of data size, not width, that keep the whole run near half its time
+# Cuts of data size, not width, that keep the whole run within its time
 # limit: the "FB in practice" step is host-bound at a fixed cost a chunk
-# (about 0.1 s), so 390 of its 1562 chunks; a whole traced epoch costs
+# (about 0.1 s), so 195 of its 1562 chunks; a whole traced epoch costs
 # minutes of the profiler's own work, so the profiled steps are shorter still
 FB_PRACTICE = ["data.batch_size=32", "hyp.shuffle=True", "hyp.steps=1", "hyp.warmup=0",
-               "impl.mixed_precision=True", "data.size=12_480"]   # hyp=gradreg, bf16
+               "impl.mixed_precision=True", "data.size=6_240"]   # hyp=gradreg, bf16
 SGD_PROFILED = ["data.size=6400"]           # 50 updates, not 390
 FB_PRACTICE_PROFILED = ["data.size=1024"]   # 32 chunks
-SGD_UPDATES, FB_PRACTICE_CHUNKS = 390, 390  # 50,000 images in blocks of 128; 12,480 in 32s
+SGD_UPDATES, FB_PRACTICE_CHUNKS = 390, 195  # 50,000 images in blocks of 128; 6,240 in 32s
 KERNELS = ("stats", "bwd_reduce", "bwd_apply")
 
 
@@ -1512,6 +1547,318 @@ def phase_dist_resnet152(torch, bn):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 11: TinyImageNet, ImageNet's transforms, streamed epochs
+# ---------------------------------------------------------------------------
+
+# data=TinyImageNet hyp=fb1 at FULL_WIDTH's chunks: 100,000 synthetic images
+# of 64x64, 48 chunks of 2048, resident (1.208 GB laid out)
+TINY = ["data=TinyImageNet", "hyp.warmup=0", "hyp.steps=2", "data.batch_size=2048",
+        "hyp.sub_batch=2048", "impl.mixed_precision=True"]
+TINY_STREAMED = ["impl.hbm_epoch_max_bytes=536870912"]     # 5 blocks a segment
+SHUFFLED = ["hyp.shuffle=True", "hyp.steps=1"]
+# data=ImageNet as its yaml has it (batch 128, RandomResizedCrop 224, Resize
+# 256 + CenterCrop 224), cut in size to 4,096 images and their 1,000
+# validation images; epoch (617 MB) and validation set (154 MB) streamed
+IMAGENET = ["data=ImageNet", "data.size=4096", "hyp.warmup=0", "hyp.steps=1",
+            "impl.mixed_precision=True"]
+IMAGENET_STREAMED = ["impl.hbm_epoch_max_bytes=134217728", "impl.eval_block_chunks=4"]
+STEM_224 = [(224 * 224, 64)]   # ResNet-18's first-stage BN at 224 px (CIFAR stem)
+EVAL_TOL = 1e-5                 # streamed, chunked evaluation against resident, whole blocks
+RESAMPLE_TOL = 1e-3             # card against CPU on the 0-255 scale
+JPEG_CLASSES, JPEG_PER_CLASS = 4, 16
+CLI = ["data=ImageNet", "dryrun=True", "seed=0", "model.width=16"]   # data, not the model
+
+
+def step_launches(torch, bundle, cfg, steps, evals):
+    """Launches of each kernel: 20 BN layers a chunk a step, ``apply`` also
+    20 a forward of each evaluation, ``eval_chunks`` forwards a block (the
+    trainer's: ``impl.eval_block_chunks``, or for ``auto`` the activation
+    estimate against ``impl.activation_budget_bytes``)."""
+    from fullbatchtraining_tpu_torch.data import epoch_layout
+    from fullbatchtraining_tpu_torch.models import construct_model
+    from fullbatchtraining_tpu_torch.models.models import estimate_activation_bytes
+    from fullbatchtraining_tpu_torch.training.training import _resolve_eval_chunking
+
+    spec = cfg.impl.eval_block_chunks
+    model = construct_model(cfg.model, bundle.channels, bundle.classes)
+    dtype = torch.bfloat16 if cfg.impl.mixed_precision else torch.float32
+    act = (estimate_activation_bytes(model, bundle.pixels, bundle.channels, dtype)
+           if spec in ("auto", True) else None)
+    eval_chunks = _resolve_eval_chunking(spec, bundle.batch_size, act,
+                                         cfg.impl.get("activation_budget_bytes"))
+    blocks, chunks, _ = epoch_layout(bundle.size, bundle.batch_size, cfg.hyp.sub_batch)
+    train = BN_LAYERS * blocks * chunks * steps
+    eval_blocks = -(-len(bundle.valid) // bundle.batch_size)
+    return {**{k: train for k in KERNELS},
+            "apply": train + BN_LAYERS * eval_blocks * eval_chunks * evals}
+
+
+def streamed_totals(torch, bundle, cfg, passes, evals):
+    """``(segments, bytes host to device)`` of a run that makes ``passes``
+    passes over the epoch and ``evals`` evaluations, each streamed where
+    ``stream_plan`` says so; bytes are copied on the card only."""
+    from fullbatchtraining_tpu_torch.data import epoch_layout
+    from fullbatchtraining_tpu_torch.data.pipeline import stream_plan
+
+    item = bundle.train.images[0].nbytes
+    blocks, chunks, sub = epoch_layout(bundle.size, bundle.batch_size, cfg.hyp.sub_batch)
+    val_blocks = -(-len(bundle.valid) // bundle.batch_size)
+    segments = nbytes = 0
+    for count, layout in ((passes, (blocks, chunks, sub)),
+                          (evals, (val_blocks, 1, bundle.batch_size))):
+        streamed, seg_blocks, total = stream_plan(*layout, 1, item, cfg.impl)
+        if streamed:
+            segments += count * -(-layout[0] // seg_blocks)
+            nbytes += count * total
+    return segments, nbytes * (torch.device(DEVICE).type == "cuda")
+
+
+def differing(torch, ours, ref, stats, ref_stats):
+    """Tensors of two state dicts and stats (train_time aside) that differ."""
+    return ([k for k in ref if not torch.equal(ours[k], ref[k])]
+            + [k for k in ref_stats if k != "train_time" and stats[k] != ref_stats[k]])
+
+
+def tiny_run(torch, bn, extra, bundle=None):
+    """``TINY + extra`` through ``training.train`` (on ``bundle`` where
+    given): the run's launches, streaming counts, state and stats."""
+    from fullbatchtraining_tpu_torch.parallel import streaming
+
+    bn.reset_counts()
+    streaming.reset_counts()
+    cfg, bundle, _, state, stats = run_main_path(torch, TINY + list(extra), bundle=bundle)
+    return {"cfg": cfg, "bundle": bundle, "state": state.model.state_dict(), "stats": stats,
+            "launches": dict(bn.launches), "wide": dict(bn.vector_launches),
+            "streaming": dict(streaming.counts),
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def phase_tiny_resident(torch, bn):
+    """11a: ``data=TinyImageNet model=resnet18 hyp=fb1`` at full width, the
+    epoch resident: 2 steps (the second warm), their launches exactly, peak
+    memory, the synthetic set's time to generate on first use."""
+    import tempfile
+
+    from fullbatchtraining_tpu_torch.data import construct_datasets
+
+    cfg = main_path_config(TINY)
+    cache = Path(tempfile.gettempdir()) / "fbt_synthetic"
+    fresh = not any(cache.glob(f"TinyImageNet_{cfg.data.size}_*"))
+    t0 = time.time()
+    train, valid = construct_datasets(cfg.data)
+    synthetic_s = time.time() - t0
+    check(train.images.shape == (cfg.data.size, 64, 64, 3)
+          and len(valid) == max(cfg.data.classes, min(cfg.data.size // 5, 10_000)),
+          f"TinyImageNet synthetic {train.images.shape}, {len(valid)} validation images")
+    del train, valid
+    run = tiny_run(torch, bn, [])
+    stats, bundle = run["stats"], run["bundle"]
+    expected = step_launches(torch, bundle, run["cfg"], 2, len(stats["valid_loss"]))
+    result = {"synthetic_s": synthetic_s, "synthetic_generated": fresh,
+              "epoch_bytes": bundle.train.images.nbytes, "step_s": stats["train_time"],
+              "peak_memory_gib": run["peak_memory_gib"], "launches": run["launches"],
+              "train_loss": stats["train_loss"], "valid_loss": stats["valid_loss"],
+              "valid_acc": stats["valid_acc"]}
+    log(f"  synthetic TinyImageNet {'generated' if fresh else 'read'} in {synthetic_s:.1f} s; "
+        f"steps {[f'{t:.3f}' for t in stats['train_time']]} s; peak memory "
+        f"{run['peak_memory_gib']:.2f} GiB; train loss {stats['train_loss']}, valid loss "
+        f"{stats['valid_loss']}; launches {run['launches']}")
+    check(run["launches"] == expected, f"launches {run['launches']}, expected {expected}")
+    check(run["wide"] == run["launches"], f"16-byte launches {run['wide']}")
+    check(run["streaming"]["segments"] == 0, "the resident epoch streamed")
+    check(all(map(math.isfinite, stats["train_loss"] + stats["valid_loss"])), "non-finite loss")
+    return result, run
+
+
+def phase_tiny_streamed(torch, bn, resident):
+    """11b: 11a's run with the epoch streamed (``TINY_STREAMED``): bitwise
+    11a's params, BN stats and stats, its launches, the H2D bytes (the
+    epoch's, a step), the segments, a profile of one warm streamed step
+    (the copy stream's busy time; the compute stream's time is the resident
+    step's too, the same kernels on the same data, so its share of 11a's
+    warm step is the resident busy share); then one shuffled step streamed
+    (the host gathers each segment's rows) against the resident device
+    gather, bitwise."""
+    from fullbatchtraining_tpu_torch.data import epoch_layout
+    from fullbatchtraining_tpu_torch.data.pipeline import stream_plan
+
+    run = tiny_run(torch, bn, TINY_STREAMED, resident["bundle"])
+    stats, cfg, bundle = run["stats"], run["cfg"], run["bundle"]
+    blocks, chunks, sub = epoch_layout(bundle.size, bundle.batch_size, cfg.hyp.sub_batch)
+    streamed, seg_blocks, epoch_bytes = stream_plan(blocks, chunks, sub, 1,
+                                                    bundle.train.images[0].nbytes, cfg.impl)
+    segments = -(-blocks // seg_blocks)
+    totals = streamed_totals(torch, bundle, cfg, 2, len(stats["valid_loss"]))
+    differ = differing(torch, run["state"], resident["state"], stats, resident["stats"])
+    result = {"step_s": stats["train_time"], "resident_step_s": resident["stats"]["train_time"],
+              "overhead": stats["train_time"][-1] / resident["stats"]["train_time"][-1] - 1,
+              "segments": run["streaming"]["segments"], "segments_a_pass": segments,
+              "seg_blocks": seg_blocks, "h2d_bytes": run["streaming"]["h2d_bytes"],
+              "epoch_bytes": epoch_bytes, "peak_memory_gib": run["peak_memory_gib"],
+              "launches": run["launches"], "differ": differ}
+    log(f"  streamed: steps {[f'{t:.3f}' for t in stats['train_time']]} s against resident "
+        f"{[f'{t:.3f}' for t in resident['stats']['train_time']]} s (warm step "
+        f"{100 * result['overhead']:+.1f}%); {run['streaming']['segments']} segments of "
+        f"{seg_blocks} blocks, {run['streaming']['h2d_bytes'] / 1e9:.3f} GB host to device "
+        f"(epoch {epoch_bytes / 1e9:.3f} GB a step); peak memory "
+        f"{run['peak_memory_gib']:.2f} GiB; {len(differ)} tensors or stats differ")
+    check(streamed and segments > 1, f"{segments} segments")
+    check(not differ, f"streamed run differs from the resident one: {differ[:5]}")
+    check(run["launches"] == resident["launches"], f"launches {run['launches']}")
+    check((run["streaming"]["segments"], run["streaming"]["h2d_bytes"]) == totals,
+          f"{run['streaming']}, expected (segments, bytes) {totals}")
+    profile = phase_profile(torch, "fb1", TINY + TINY_STREAMED, base=[],
+                            wall_ms=1e3 * stats["train_time"][-1], warm_up=False, bundle=bundle)
+    result["profile"] = profile
+    if profile:
+        result["resident_busy_share"] = profile["device_ms"] / (
+            1e3 * resident["stats"]["train_time"][-1])
+        log(f"  resident busy share {result['resident_busy_share']:.3f} (the streamed step's "
+            "compute time over 11a's warm step)")
+    del run
+    shuffled = {}
+    for name, extra in (("resident", SHUFFLED), ("streamed", SHUFFLED + TINY_STREAMED)):
+        shuffled[name] = tiny_run(torch, bn, extra, bundle)
+    ours, ref = shuffled["streamed"], shuffled["resident"]
+    totals = streamed_totals(torch, bundle, ours["cfg"], 1, len(ours["stats"]["valid_loss"]))
+    differ = differing(torch, ours["state"], ref["state"], ours["stats"], ref["stats"])
+    result["shuffled"] = {"step_s": ours["stats"]["train_time"][0],
+                          "resident_step_s": ref["stats"]["train_time"][0],
+                          "segments": ours["streaming"]["segments"],
+                          "h2d_bytes": ours["streaming"]["h2d_bytes"], "differ": differ}
+    log(f"  shuffled: streamed step {ours['stats']['train_time'][0]:.3f} s, resident "
+        f"{ref['stats']['train_time'][0]:.3f} s; {ours['streaming']['segments']} segments, "
+        f"{ours['streaming']['h2d_bytes'] / 1e9:.3f} GB; {len(differ)} tensors or stats differ")
+    check(not differ, f"streamed shuffled step differs from the resident one: {differ[:5]}")
+    check((ours["streaming"]["segments"], ours["streaming"]["h2d_bytes"]) == totals,
+          f"{ours['streaming']}, expected (segments, bytes) {totals}")
+    check(ours["launches"] == ref["launches"], f"launches {ours['launches']}")
+    return result
+
+
+def phase_resample(torch):
+    """11c, first part: ``resize`` (224 up to 256, 257 down to 256) and
+    ``resized_crop`` (boxes drawn on the CPU) of 128 images on the card
+    against the same calls on the CPU; their times on the card."""
+    from fullbatchtraining_tpu_torch.data import augmentations as aug
+
+    g = torch.Generator().manual_seed(0)
+    result = {}
+    for side in (224, 257):
+        x = torch.randint(0, 256, (128, side, side, 3), generator=g, dtype=torch.uint8)
+        boxes = aug.draw_resized_crop(128, g, height=side, width=side)
+        xd = x.to(DEVICE)
+        calls = {f"resize_{side}_to_256": (lambda t: aug.resize(t, 256)),
+                 f"resized_crop_{side}_to_224": (lambda t: aug.resized_crop(
+                     t, 224, *(b.to(t.device) for b in boxes)))}
+        for name, call in calls.items():
+            err = (call(xd).cpu() - call(x)).abs().max().item()
+            result[name] = {"max_abs_err": err, "ms": cuda_ms(torch, lambda: call(xd), iters=10)}
+            log(f"  {name}: card against CPU max abs err {err:.2e} (tol {RESAMPLE_TOL:g} on "
+                f"0-255), {result[name]['ms']:.3f} ms on the card")
+            check(err <= RESAMPLE_TOL, f"{name} on the card disagrees with the CPU: {err}")
+    return result
+
+
+def phase_imagenet(torch, bn):
+    """11c: ``data=ImageNet model=resnet18 hyp=fb1`` (``IMAGENET``) with
+    the epoch and the validation set streamed and evaluation in 4
+    sub-chunks a block: one step and one evaluation through
+    ``training.train``, their launches exactly; the evaluation against a
+    resident one in whole blocks of the trained model, to ``EVAL_TOL``."""
+    from fullbatchtraining_tpu_torch.parallel import streaming
+    from fullbatchtraining_tpu_torch.training import training
+
+    result = {"resample": phase_resample(torch)}
+    bn.reset_counts()
+    streaming.reset_counts()
+    cfg, bundle, _, state, stats = run_main_path(torch, IMAGENET + IMAGENET_STREAMED)
+    counts, wide, streamed = dict(bn.launches), dict(bn.vector_launches), dict(streaming.counts)
+    expected = step_launches(torch, bundle, cfg, 1, len(stats["valid_loss"]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    whole = main_path_config(IMAGENET + ["impl.eval_block_chunks=1"])
+    trainer = training.Trainer(state.model, bundle, whole, torch.device(DEVICE))
+    val = training.stage_validation(bundle, bundle.batch_size, DEVICE, cfg_impl=whole.impl)
+    check(trainer.eval_chunks == 1 and isinstance(val[0], torch.Tensor),
+          "the reference evaluation is chunked or streamed")
+    ref = {k: v.item() for k, v in trainer.eval_step(state.model, *val).items()}
+    gaps = {k: abs(stats[k][-1] - v) / max(abs(v), 1e-30) for k, v in ref.items()}
+    result.update({"step_s": stats["train_time"][0], "peak_memory_gib": peak,
+                   "launches": counts, "streaming": streamed,
+                   "train_loss": stats["train_loss"], "valid_loss": stats["valid_loss"],
+                   "valid_acc": stats["valid_acc"], "resident_whole_blocks": ref,
+                   "eval_rel_gap": gaps})
+    log(f"  step {stats['train_time'][0]:.3f} s over {bundle.size} images; peak memory "
+        f"{peak:.2f} GiB; {streamed['segments']} segments, {streamed['h2d_bytes'] / 1e9:.3f} GB "
+        f"host to device; valid loss {stats['valid_loss'][-1]:.6f} acc "
+        f"{stats['valid_acc'][-1]:.4f} (streamed, 4 sub-chunks) against {ref['valid_loss']:.6f} "
+        f"/ {ref['valid_acc']:.4f} (resident, whole blocks): relative gaps {gaps}; "
+        f"launches {counts}")
+    check(counts == expected, f"launches {counts}, expected {expected}")
+    check(wide == counts, f"16-byte launches {wide}")
+    totals = streamed_totals(torch, bundle, cfg, 1, len(stats["valid_loss"]))
+    check(totals[0] > 2 and (streamed["segments"], streamed["h2d_bytes"]) == totals,
+          f"{streamed}, expected (segments, bytes) {totals}: the epoch's and the padded "
+          "validation set's")
+    check(all(g <= EVAL_TOL for g in gaps.values()), f"evaluation gaps {gaps}")
+    check(all(map(math.isfinite, stats["train_loss"] + stats["valid_loss"])), "non-finite loss")
+    return result
+
+
+def phase_jpeg_tree(torch):
+    """11d: a JPEG tree written with PIL (``JPEG_CLASSES`` classes of
+    ``JPEG_PER_CLASS`` train and 4 validation images of odd sizes) under a
+    temporary directory, loaded twice by ``python -m
+    fullbatchtraining_tpu_torch data=ImageNet dryrun=True``: the first run
+    decodes it into the dryrun cache, the second reads that cache."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tree = Path(tempfile.mkdtemp(prefix="chip_smoke_jpeg_", dir=ROOT / "build"))
+    try:
+        rng = np.random.default_rng(0)
+        for split, count in (("train", JPEG_PER_CLASS), ("val", 4)):
+            for c in range(JPEG_CLASSES):
+                folder = tree / split / f"n{c:08d}"
+                folder.mkdir(parents=True)
+                for i in range(count):
+                    h, w = 181 + 17 * i + c, 263 + 11 * i
+                    Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(
+                        folder / f"{i}.JPEG", quality=90)
+        runs, stamps = [], []
+        for _ in range(2):
+            t0 = time.time()
+            run = subprocess.run([sys.executable, "-m", "fullbatchtraining_tpu_torch", *CLI,
+                                  f"data.path={tree}", f"base_dir={tree / 'out'}"],
+                                 cwd=ROOT, capture_output=True, text=True, timeout=300)
+            runs.append({"rc": run.returncode, "s": time.time() - t0,
+                         "decoded": "Decoded 0/" in run.stdout,
+                         "finished": "Final validation accuracy" in run.stdout})
+            stamps.append({f.name: f.stat().st_mtime_ns
+                           for f in (tree / "_fbt_cache_ImageNet_224_dryrun").glob("*.npy")})
+            if run.returncode:
+                log(run.stdout[-3000:] + run.stderr[-3000:])
+        cache = tree / "_fbt_cache_ImageNet_224_dryrun"
+        shape = list(np.load(cache / "train_images.npy", mmap_mode="r").shape)
+    finally:
+        shutil.rmtree(tree, ignore_errors=True)
+    result = {"runs": runs, "train_cache_shape": shape, "cache_files": sorted(stamps[0])}
+    log(f"  {JPEG_CLASSES * JPEG_PER_CLASS} train images into {shape}: first run "
+        f"{runs[0]['s']:.1f} s (decoded {runs[0]['decoded']}), second {runs[1]['s']:.1f} s "
+        f"(decoded {runs[1]['decoded']}); cache files {sorted(stamps[0])} unchanged: "
+        f"{stamps[0] == stamps[1]}")
+    check(all(r["rc"] == 0 and r["finished"] for r in runs), f"CLI runs {runs}")
+    check(shape == [JPEG_CLASSES * JPEG_PER_CLASS, 257, 257, 3], f"cache shape {shape}")
+    check(runs[0]["decoded"] and not runs[1]["decoded"] and len(stamps[0]) == 4
+          and stamps[0] == stamps[1], "the second load did not read the first one's cache")
+    return result
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write every measurement to this JSON file")
@@ -1570,7 +1917,8 @@ def main() -> int:
     sgd_epoch = phase_sgd_epoch(torch, bn)
     phase("[8c] hyp=base_sgd at full width: 2 steps of 390 updates, float32")
     sgd = phase_sgd_full_width(torch, bn)
-    phase("[8d] hyp=gradreg data.batch_size=32 hyp.shuffle=True: 1 full-width bf16 step, 390 chunks")
+    phase("[8d] hyp=gradreg data.batch_size=32 hyp.shuffle=True: 1 full-width bf16 step, "
+          "195 chunks")
     fb_practice = phase_fb_practice(torch, bn, full)
     phase("[8e] resume from a checkpoint: bitwise equal to the straight run")
     resume = phase_resume(torch)
@@ -1592,6 +1940,17 @@ def main() -> int:
     dist_two = phase_dist_two(torch, bn)
     phase("[10c] train_distributed_multinode.sh:8: hyp=gradreg model=resnet152, 20 chunks of 128")
     dist_152 = phase_dist_resnet152(torch, bn)
+    phase("[11] kernels against their plain versions at the 224 px first-stage BN (128 images)")
+    stem_rows = phase_kernels(torch, bn, 128, STEM_224)
+    phase("[11a] data=TinyImageNet hyp=fb1 at full width: 100,000 images of 64x64, resident")
+    tiny, tiny_run_a = phase_tiny_resident(torch, bn)
+    phase("[11b] the same streamed from the host: bitwise 11a, in order and shuffled")
+    tiny_streamed = phase_tiny_streamed(torch, bn, tiny_run_a)
+    del tiny_run_a
+    phase("[11c] data=ImageNet hyp=fb1: RandomResizedCrop, Resize, streamed epoch and evaluation")
+    imagenet = phase_imagenet(torch, bn)
+    phase("[11d] a JPEG ImageFolder tree through the CLI, twice: decoded, then cached")
+    jpeg = phase_jpeg_tree(torch)
 
     kernels = []
     for name in ("stats", "apply", "bwd_reduce", "bwd_apply"):
@@ -1608,9 +1967,15 @@ def main() -> int:
             "launches_fb_shuffle": fb_practice["launches"][name],
             "launches_baked": baked_fb1["launches"][name],
             "launches_dist": dist_one["launches"][name],
+            "launches_tinyimagenet": tiny["launches"][name],
+            "launches_streamed": tiny_streamed["launches"][name],
+            "launches_imagenet": imagenet["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
-            "bound_by": "bytes", "library_ms": total("library_ms")})
+            "bound_by": "bytes", "library_ms": total("library_ms"),
+            "stem_224": {key: next(r[key] for r in stem_rows if r["kernel"] == name
+                                   and r["dtype"] == "bfloat16")
+                         for key in ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")}})
         k = kernels[-1]
         log(f"  {name:10s} bf16 chunk: {k['ms']:.4f} ms, {k['ms'] / k['library_ms']:.2f}x its "
             f"library call, {k['ms'] / k['bound_ms']:.2f}x its bound")
@@ -1624,7 +1989,9 @@ def main() -> int:
              "fb_practice": fb_practice, "resume": resume, "bake": bake,
              "baked_fb1": baked_fb1, "baked_sgd": baked_sgd, "baked_host": baked_host,
              "dist_one": dist_one, "dist_two": dist_two, "dist_resnet152": dist_152,
-             "kernels": kernels}, indent=1))
+             "stem_kernel_rows": stem_rows, "tinyimagenet": tiny,
+             "tinyimagenet_streamed": tiny_streamed, "imagenet": imagenet, "jpeg_tree": jpeg,
+             "kernels": kernels}, indent=1, default=str))
     log(f"all phases passed in {time.time() - started:.0f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -1,13 +1,19 @@
 """Raw datasets as host numpy arrays (uint8 NHWC images, int32 labels).
 
-The port's own copy of the CIFAR parts of
-``fullbatchtraining_tpu/data/datasets.py``: the python-pickle loader and the
-deterministic synthetic stand-in used when the raw files are absent and
-``data.synthetic_fallback`` is set. ``_synthetic`` makes the same bytes as
-the JAX package's (the same numpy calls), so both packages train on
-identical data; its cache lives under the process's temporary directory
-(``TMPDIR``). There is no download: place the CIFAR batches under
-``data.path``.
+The port's own copy of ``fullbatchtraining_tpu/data/datasets.py``: the
+CIFAR python-pickle loader, the TinyImageNet tree and the ImageFolder tree
+(ImageNet), and the deterministic synthetic stand-in used when the raw
+files are absent and ``data.synthetic_fallback`` is set. ``_synthetic``
+makes the same bytes as the JAX package's (the same numpy calls), so both
+packages train on identical data; its cache lives under the process's
+temporary directory (``TMPDIR``). There is no download: place the files
+under ``data.path``.
+
+The two image trees decode once, with PIL, into uint8 ``.npy`` files beside
+the tree that later runs open as memmaps; the layout and names are the JAX
+package's, so either package reuses the other's decode. PIL is also the
+JAX package's own decoder where its libjpeg engine is absent, and the one
+whose bytes it falls back to.
 """
 
 from __future__ import annotations
@@ -21,6 +27,11 @@ from pathlib import Path
 import numpy as np
 
 log = logging.getLogger(__name__)
+
+# torchvision datasets/folder.py IMG_EXTENSIONS
+_IMG_EXTENSIONS = {".jpg", ".jpeg", ".png", ".ppm", ".bmp", ".pgm", ".tif", ".tiff", ".webp"}
+_TINY_SIDE = 64        # TinyImageNet images are 64x64
+_DRYRUN_FILES = 256    # files a split a dryrun decodes into its own cache
 
 
 class ArrayDataset:
@@ -116,14 +127,134 @@ def _synthetic(name: str, size: int, pixels: int, channels: int, classes: int,
     return train, valid
 
 
+def _decode_split(img_file: Path, lbl_file: Path, files, labels, side: int, read,
+                  chunk: int, what: str):
+    """``(images, labels)`` of one split: the cached ``.npy`` pair where the
+    label file, written last, marks it complete (images as a read-only
+    memmap); else every file of ``files`` through ``read(path) -> [side,
+    side, 3] uint8`` into a new ``img_file``, then the labels."""
+    if lbl_file.exists() and img_file.exists():
+        return np.load(img_file, mmap_mode="r"), np.load(lbl_file)
+    img_file.parent.mkdir(parents=True, exist_ok=True)
+    images = np.lib.format.open_memmap(img_file, mode="w+", dtype=np.uint8,
+                                       shape=(len(files), side, side, 3))
+    for start in range(0, len(files), chunk):
+        for i, path in enumerate(files[start:start + chunk]):
+            images[start + i] = read(path)
+        if start % 51_200 == 0:
+            log.info("Decoded %d/%d %s images", start, len(files), what)
+    images.flush()
+    labels = np.asarray(labels, np.int32)
+    np.save(lbl_file, labels)
+    return images, labels
+
+
+def _pil():
+    try:
+        from PIL import Image
+    except ImportError as err:
+        raise ImportError("decoding an image tree needs Pillow, which is not installed") from err
+    return Image
+
+
+def _load_tiny_imagenet(base: Path) -> tuple | None:
+    """TinyImageNet from ``<base>/tiny-imagenet-200``: ``wnids.txt`` sorted
+    gives the labels, ``train/<wnid>/images/*.JPEG`` sorted and the
+    ``val/val_annotations.txt`` list give the files, each decoded to RGB
+    (resized bilinearly to 64x64 where it is not) into
+    ``_fbt_cache/{split}_images.npy``. None where the manifest or the
+    annotations are missing: the tree is absent or half extracted."""
+    folder = base / "tiny-imagenet-200"
+    manifest = folder / "wnids.txt"
+    annotations = folder / "val" / "val_annotations.txt"
+    if not (manifest.exists() and annotations.exists()):
+        return None
+    cache = folder / "_fbt_cache"
+
+    def read(path):
+        image = _pil().open(path).convert("RGB")
+        if image.size != (_TINY_SIDE, _TINY_SIDE):
+            image = image.resize((_TINY_SIDE, _TINY_SIDE), _pil().BILINEAR)
+        return np.asarray(image, np.uint8)
+
+    wnids = sorted(manifest.read_text().split())
+    label_of = {w: i for i, w in enumerate(wnids)}
+    train_files, train_labels = [], []
+    for wnid in wnids:
+        for path in sorted((folder / "train" / wnid / "images").glob("*.JPEG")):
+            train_files.append(path)
+            train_labels.append(label_of[wnid])
+    val_files, val_labels = [], []
+    for line in annotations.read_text().strip().splitlines():
+        name, wnid = line.split("\t")[:2]
+        val_files.append(folder / "val" / "images" / name)
+        val_labels.append(label_of[wnid])
+    return tuple(_decode_split(cache / f"{tag}_images.npy", cache / f"{tag}_labels.npy", files,
+                               labels, _TINY_SIDE, read, 1024, tag)
+                 for tag, files, labels in (("train", train_files, train_labels),
+                                            ("val", val_files, val_labels)))
+
+
+def _load_imagefolder(base: Path, pixels: int, cache_tag: str,
+                      dryrun: bool = False) -> tuple | None:
+    """An ImageFolder tree (``train/<class>/*``, ``val/<class>/*``; classes
+    sorted, files sorted, only image files), each image resized bilinearly
+    so its shorter side is ``int(pixels * 1.15)`` (room for the random
+    crops) and centre-cropped square, into
+    ``_fbt_cache_{cache_tag}_{pixels}/{split}_images.npy``. A dryrun without
+    both full splits cached decodes the first 256 files a split into the
+    separate ``..._dryrun`` cache. None where ``train/`` is missing."""
+    if not (base / "train").exists():
+        return None
+    cache = base / f"_fbt_cache_{cache_tag}_{pixels}"
+    limit = None
+    if dryrun and not all((cache / f"{s}_labels.npy").exists() for s in ("train", "val")):
+        cache = base / f"_fbt_cache_{cache_tag}_{pixels}_dryrun"
+        limit = _DRYRUN_FILES
+    side = int(pixels * 1.15)
+
+    def read(path):
+        image = _pil().open(path).convert("RGB")
+        scale = side / min(image.size)
+        image = image.resize((max(side, round(image.width * scale)),
+                              max(side, round(image.height * scale))), _pil().BILINEAR)
+        left, top = (image.width - side) // 2, (image.height - side) // 2
+        return np.asarray(image.crop((left, top, left + side, top + side)), np.uint8)
+
+    def split(name):
+        img_file, lbl_file = cache / f"{name}_images.npy", cache / f"{name}_labels.npy"
+        files, labels = [], []
+        if not (lbl_file.exists() and img_file.exists()):  # a hit walks no directory
+            folder = base / name
+            for label, cls in enumerate(sorted(d.name for d in folder.iterdir() if d.is_dir())):
+                for path in sorted((folder / cls).iterdir()):
+                    if path.suffix.lower() in _IMG_EXTENSIONS and path.is_file():
+                        files.append(path)
+                        labels.append(label)
+                if limit is not None and len(files) >= limit:
+                    break
+            if limit is not None:
+                files, labels = files[:limit], labels[:limit]
+        return _decode_split(img_file, lbl_file, files, labels, side, read, 512, name)
+
+    return split("train"), split("val")
+
+
 def construct_datasets(cfg_data, dryrun: bool = False) -> tuple[ArrayDataset, ArrayDataset]:
-    """Build (train, valid) ArrayDatasets per the data config group."""
+    """Build (train, valid) ArrayDatasets per the data config group: CIFAR
+    pickles, the TinyImageNet tree or, for ImageNet, an ImageFolder tree
+    under ``data.path``; where none is there, the synthetic stand-in or
+    ``FileNotFoundError``."""
     name = cfg_data.name
-    if name not in ("CIFAR10", "CIFAR100"):
-        raise NotImplementedError(
-            f"dataset {name!r} is not ported yet (ROADMAP.md, 'Streamed epochs and other datasets')")
     base = Path(os.path.expanduser(str(cfg_data.path)))
-    loaded = _load_cifar_pickles(base, name)
+    if name in ("CIFAR10", "CIFAR100"):
+        loaded = _load_cifar_pickles(base, name)
+    elif name == "TinyImageNet":
+        loaded = _load_tiny_imagenet(base)
+    elif name == "ImageNet":
+        loaded = _load_imagefolder(base, cfg_data.pixels, name, dryrun=dryrun)
+    else:
+        loaded = None
     if loaded is None:
         if not cfg_data.get("synthetic_fallback", False):
             raise FileNotFoundError(

@@ -3,8 +3,10 @@
 
 The training set lives as one uint8 array; an optimizer step consumes it as
 ``num_blocks x chunks x sub_batch`` samples (drop-last), in order or, with
-``hyp.shuffle``, in the step's :func:`epoch_order`, and the trainer keeps it
-resident on the device. With ``data.db`` the set is the baked store's
+``hyp.shuffle``, in the step's :func:`epoch_order`. The trainer keeps it
+resident on the device, or, where :func:`stream_plan` says the laid-out
+epoch is above ``impl.hbm_epoch_max_bytes``, in host memory, and streams it
+to the device in segments of whole blocks. With ``data.db`` the set is the baked store's
 ``rounds x size`` images (``data/baked.py``), whose augmentations are fixed
 at bake time; a semi-stochastic step reads one of its rounds. With ``W``
 ranks a global block is ``W`` per-rank blocks, and rank ``r`` trains on
@@ -60,7 +62,10 @@ def construct_databundle(cfg_data, cfg_impl=None, cfg_hyp=None, dryrun: bool = F
     ``rounds x size`` images, with no augmentation at train time. A
     temporary store goes when rank 0's process exits.
     ``cfg_impl`` and ``cfg_hyp`` are accepted for call-site symmetry with
-    the JAX package; nothing of the data path reads them."""
+    the JAX package; this function reads neither. Whether the epoch and the
+    validation set stay on the device or stream from the host, and how
+    they are shuffled, is decided by the trainer, which reads both
+    (:func:`stream_plan`)."""
     world = world if world is not None else current_world()
     train, valid = construct_datasets(cfg_data, dryrun=dryrun)
     baked = None
@@ -108,6 +113,25 @@ def epoch_layout(total: int, batch_size: int, sub_batch: int, num_devices: int =
     if dryrun:
         num_blocks = 1
     return num_blocks, batch_size // sub, sub
+
+
+def stream_plan(num_blocks: int, chunks: int, sub: int, num_devices: int, per_item_bytes: int,
+                cfg_impl):
+    """``(streamed, seg_blocks, epoch_bytes)`` for an epoch laid out
+    ``(blocks, devices, chunks, sub)`` of ``per_item_bytes`` an item: above
+    ``impl.hbm_epoch_max_bytes`` it stays in host memory and streams in
+    segments of ``seg_blocks`` blocks (``impl.stream_segment_blocks``, or
+    0 for as many as fit a quarter of the budget, at least one); else it is
+    resident, one segment of every block. The JAX package's function, as it
+    is."""
+    epoch_bytes = num_blocks * num_devices * chunks * sub * per_item_bytes
+    hbm_budget = int(cfg_impl.get("hbm_epoch_max_bytes", 8 << 30))
+    if epoch_bytes <= hbm_budget:
+        return False, num_blocks, epoch_bytes
+    block_bytes = num_devices * chunks * sub * per_item_bytes
+    seg_auto = max(1, (hbm_budget // 4) // max(block_bytes, 1))
+    seg_cfg = int(cfg_impl.get("stream_segment_blocks", 0) or 0)
+    return True, min(num_blocks, seg_cfg or seg_auto), epoch_bytes
 
 
 def rank_rows(order, num_blocks: int, chunks: int, sub: int, num_devices: int = 1,

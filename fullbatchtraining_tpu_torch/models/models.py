@@ -10,7 +10,9 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
+from .layers import BatchNorm2d
 from .resnets import ResNet, resnet_depths_to_config
 
 
@@ -39,3 +41,41 @@ def construct_model(cfg_model, channels: int, classes: int, seed: int = 0) -> nn
         or "skip-residual" in str(cfg_model.initialization),
         generator=generator,
     )
+
+
+def estimate_activation_bytes(model: nn.Module, pixels: int, channels: int,
+                              compute_dtype=torch.float32) -> int:
+    """Per-sample activation bytes of one train-mode forward, estimated as
+    the JAX package estimates them (its ``models.estimate_activation_bytes``):
+    the elements of every module's output, the model's own included, over a
+    probe batch of 2 at ``pixels x pixels x channels``, divided by 2, at
+    ``compute_dtype``'s item size. A BatchNorm's output counts twice: the
+    JAX package's BatchNorm2d wraps an inner module whose output its trace
+    counts as well, so both packages arrive at the same number. The probe
+    runs on the ``meta`` device (forward hooks count the outputs), so
+    nothing is allocated or computed and the model's own weights and
+    running stats are untouched."""
+    elems = 0
+
+    def count(module, args, output):
+        nonlocal elems
+        times = 2 if isinstance(module, BatchNorm2d) else 1
+        for out in output if isinstance(output, (tuple, list)) else (output,):
+            if isinstance(out, torch.Tensor):
+                elems += times * out.numel()
+
+    probe = 2
+    state = {name: torch.empty_like(t, device="meta")
+             for name, t in [*model.named_parameters(), *model.named_buffers()]}
+    hooks = [m.register_forward_hook(count) for m in model.modules()]
+    training = model.training
+    try:
+        model.train()
+        with torch.no_grad():
+            functional_call(model, state,
+                            (torch.empty((probe, pixels, pixels, channels), device="meta"),))
+    finally:
+        model.train(training)
+        for hook in hooks:
+            hook.remove()
+    return elems * torch.empty((), dtype=compute_dtype).element_size() // probe

@@ -151,8 +151,8 @@ def launch_plan(sm_count: int, m: int, c: int, dtype: torch.dtype,
 
 def _use_kernel(*tensors: torch.Tensor) -> bool:
     device = tensors[0].device
-    if device.type == "cpu" or (_force_plain and device.type == "cuda"):
-        return False
+    if device.type in ("cpu", "meta") or (_force_plain and device.type == "cuda"):
+        return False   # meta: shapes only (the activation estimate's probe)
     if device.type != "cuda":
         raise RuntimeError(f"BatchNorm kernels run on CUDA or CPU tensors, not {device}")
     x = tensors[0]

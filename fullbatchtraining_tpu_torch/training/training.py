@@ -22,10 +22,19 @@ pre-pass, clipped to ``hyp.grad_clip`` in the 2-norm), then one EMA update.
 ``params + rho * g / ||g||``: a second block gradient in a stochastic step, a
 second full pass in a full-batch one. ``hyp.train_switch_stochastic`` inverts
 the mode from that step on. With ``hyp.shuffle`` each step reads the
-resident epoch in the order :func:`~..data.pipeline.epoch_order` draws for
-it, gathered on the device. On a baked store (``data.db``) a full-batch step
-reads all ``rounds x size`` images; with ``hyp.train_semi_stochastic`` step
-``s`` reads round ``s % rounds`` alone.
+epoch in the order :func:`~..data.pipeline.epoch_order` draws for it,
+gathered on the device from the resident epoch. On a baked store
+(``data.db``) a full-batch step reads all ``rounds x size`` images; with
+``hyp.train_semi_stochastic`` step ``s`` reads round ``s % rounds`` alone.
+
+An epoch laid out above ``impl.hbm_epoch_max_bytes``
+(:func:`~..data.pipeline.stream_plan`) stays in host memory: a step's rows
+stream to the device segment by segment (:mod:`..parallel.streaming`), the
+host gathering a shuffled or semi-stochastic step's rows a segment at a
+time, and every pass walks the segments in the resident pass's order, so a
+streamed step is the resident step bit for bit. A validation set above the
+budget streams the same way, and ``impl.eval_block_chunks`` splits each
+evaluation block into sub-chunks (the metrics are sums).
 
 These are the JAX package's semantics for a mesh of ``W`` devices with
 ``impl.block_grouping=1`` (its grouped scan is exact, so it computes the same
@@ -54,9 +63,11 @@ from torch import nn
 from torch.func import functional_call
 
 from ..data.augmentations import normalize as normalize_images
-from ..data.pipeline import DataBundle, epoch_layout, epoch_order, rank_rows
+from ..data.pipeline import DataBundle, epoch_layout, epoch_order, rank_rows, stream_plan
+from ..models.models import estimate_activation_bytes
 from ..models.modules import get_loss_fn
 from ..parallel import World, all_reduce, all_reduce_parts, barrier, current_world
+from ..parallel.streaming import HostRows, host_tensor, stream_segments
 from ..utils import resolve_device
 from .grad_reg import make_grad_regularizer, tree_add_scaled, tree_sqnorm
 from .optimizers import make_lr_schedule, make_optimizer
@@ -129,11 +140,15 @@ def upload_rows(images, rows: np.ndarray, device, piece: int) -> torch.Tensor:
 
 
 def stage_validation(bundle: DataBundle, batch: int, device, dryrun: bool = False,
-                     world: World | None = None):
-    """This rank's part of the validation set, resident on ``device``: the
-    set padded to a ``(blocks, W, batch)`` grid (``ceil(n / W)`` samples a
-    rank in whole blocks of ``batch``) with per-sample weights, 0 on
-    padding, and ``[:, rank]`` of it."""
+                     world: World | None = None, cfg_impl=None):
+    """This rank's part of the validation set: the set padded to a
+    ``(blocks, W, batch)`` grid (``ceil(n / W)`` samples a rank in whole
+    blocks of ``batch``) with per-sample weights, 0 on padding, and
+    ``[:, rank]`` of it. Labels and weights go to ``device``; the images
+    too, unless ``cfg_impl`` is given and the grid is above its
+    ``hbm_epoch_max_bytes``: then they stay in host memory as
+    :class:`HostRows` of a block a row, which :meth:`Trainer.eval_step`
+    streams."""
     world = world if world is not None else World()
     images, labels = bundle.valid.images, bundle.valid.labels
     n, ranks = len(images), world.size
@@ -142,16 +157,57 @@ def stage_validation(bundle: DataBundle, batch: int, device, dryrun: bool = Fals
     total = ranks * blocks * batch
     keep = min(n, total)
     pad = total - keep
-    images = np.concatenate([images[:keep], np.zeros((pad, *images.shape[1:]), images.dtype)])
-    labels = np.concatenate([labels[:keep], np.zeros(pad, labels.dtype)])
     weights = np.concatenate([np.ones(keep, np.float32), np.zeros(pad, np.float32)])
+    if pad:
+        images = np.concatenate([images[:keep], np.zeros((pad, *images.shape[1:]), images.dtype)])
+        labels = np.concatenate([labels[:keep], np.zeros(pad, labels.dtype)])
+    else:   # a memmap stays one
+        images, labels = images[:total], labels[:total]
 
     def mine(a):
-        return a.reshape(blocks, ranks, batch, *a.shape[1:])[:, world.rank]
+        return np.ascontiguousarray(a.reshape(blocks, ranks, batch, *a.shape[1:])[:, world.rank])
 
-    return (torch.from_numpy(np.ascontiguousarray(mine(images))).to(device),
-            torch.from_numpy(mine(labels)).long().to(device),
-            torch.from_numpy(np.ascontiguousarray(mine(weights))).to(device))
+    staged_labels = torch.from_numpy(mine(labels)).long().to(device)
+    staged_weights = torch.from_numpy(mine(weights)).to(device)
+    item = int(np.prod(images.shape[1:])) * images.dtype.itemsize
+    streamed, seg_blocks, nbytes = (stream_plan(blocks, 1, batch, ranks, item, cfg_impl)
+                                    if cfg_impl is not None else (False, blocks, 0))
+    if streamed:
+        log.info("Validation set (%.2f GB padded) above impl.hbm_epoch_max_bytes: streamed from "
+                 "the host in segments of %d blocks.", nbytes / 1e9, seg_blocks)
+        host = HostRows(mine(images).reshape(blocks * batch, *images.shape[1:]), None, blocks,
+                        batch, seg_blocks)
+        return host, staged_labels, staged_weights
+    return host_tensor(mine(images)).to(device), staged_labels, staged_weights
+
+
+def _resolve_eval_chunking(spec, batch: int, act_bytes_per_sample=None, act_budget=None,
+                           double: bool = False) -> int:
+    """Sub-chunks per evaluation block (``impl.eval_block_chunks``), the JAX
+    package's function as it is: ``auto`` (or True) takes the smallest
+    divisor of ``batch`` whose sub-chunk's activations (``batch / k``
+    samples of ``act_bytes_per_sample``, twice that with ``double``: the
+    test-time flips keep two forwards alive) fit ``act_budget`` (default 9
+    GiB); an integer is rounded up to the next divisor of ``batch``; None,
+    False, 0 and 1 split nothing."""
+    if spec is True:
+        spec = "auto"
+    if spec is None or spec is False or spec in (0, 1):
+        return 1
+    if spec == "auto":
+        if not act_bytes_per_sample:
+            return 1
+        budget = int(act_budget or (9 << 30))
+        per_sample = int(act_bytes_per_sample) * (2 if double else 1)
+        need = -(-(batch * per_sample) // max(budget, 1))
+        if need <= 1:
+            return 1
+    else:
+        need = max(1, int(spec))
+    for k in range(min(need, batch), batch + 1):
+        if batch % k == 0:
+            return k
+    return batch
 
 
 def status_message(stats, step):
@@ -204,28 +260,38 @@ class Trainer:
         self.reg_fn = make_grad_regularizer(hyp.grad_reg, self.regrad)
         self.sam_rho = (float(hyp.optim_modification.rho)
                         if hyp.optim_modification.name == "SAM" else None)
+        spec = impl.get("eval_block_chunks", "auto")
+        act_bytes = (estimate_activation_bytes(model, bundle.pixels, bundle.channels, compute)
+                     if spec == "auto" or spec is True else None)
+        self.eval_chunks = _resolve_eval_chunking(spec, bundle.batch_size, act_bytes,
+                                                  impl.get("activation_budget_bytes"),
+                                                  double=bool(hyp.test_time_flips))
 
-        # The epoch stays resident on the device as uint8: in order, this
-        # rank's rows, one per chunk; shuffled or semi-stochastic, as the flat
-        # [N, H, W, C] set that stage() gathers this rank's rows from in each
-        # step's order. A baked store
-        # goes up one round at a time from its memmap; a semi-stochastic one
-        # above impl.device_shuffle_max_bytes (or without
-        # impl.device_shuffle) stays on the host, and stage() uploads the
-        # step's round.
+        # Where the epoch lives (the JAX package's stage_epoch). Laid out
+        # above impl.hbm_epoch_max_bytes it stays on the host, and stage()
+        # hands out this rank's rows of the step as HostRows that stream in
+        # segments of seg_blocks blocks. Else it is resident on the device as
+        # uint8: in order, this rank's rows, one per chunk; shuffled or
+        # semi-stochastic, as the flat [N, H, W, C] set (a baked store's
+        # rounds x size) that stage() gathers this rank's rows from in each
+        # step's order, as long as impl.device_shuffle is on and the set is
+        # within impl.device_shuffle_max_bytes. Otherwise stage() gathers the
+        # step's rows on the host and uploads them. A baked store goes up one
+        # round at a time from its memmap.
         self.shuffle = bool(hyp.shuffle)
         images, labels = bundle.train.images, bundle.train.labels
         piece = baked.meta["size"] if baked is not None else len(images)
-        limit = int(impl.get("device_shuffle_max_bytes", 8 << 30))
-        fits = images.nbytes <= limit
-        if self.semi and not (bool(impl.get("device_shuffle", True)) and fits):
+        item = int(np.prod(images.shape[1:])) * images.dtype.itemsize
+        self.streamed, self.seg_blocks, epoch_bytes = stream_plan(
+            self.num_blocks, self.chunks, self.sub, self.world.size, item, impl)
+        if self.streamed:
+            log.info("Epoch (%.2f GB laid out) above impl.hbm_epoch_max_bytes: streamed from "
+                     "the host in segments of %d blocks.", epoch_bytes / 1e9, self.seg_blocks)
+        device_gather = (not self.streamed and bool(impl.get("device_shuffle", True))
+                         and images.nbytes <= int(impl.get("device_shuffle_max_bytes", 8 << 30)))
+        if self.streamed or ((self.semi or self.shuffle) and not device_gather):
             self.images = self.labels = None
         elif self.semi or self.shuffle:
-            if not fits:
-                raise NotImplementedError(
-                    f"a shuffled epoch of {images.nbytes} bytes, above "
-                    f"impl.device_shuffle_max_bytes={limit}, is not ported yet "
-                    "(ROADMAP.md, 'Streamed epochs and other datasets')")
             self.images = upload_rows(images, np.arange(len(images)), device, piece)
             self.labels = torch.from_numpy(labels).long().to(device)
         else:
@@ -242,14 +308,17 @@ class Trainer:
 
     def stage(self, step: int):
         """``(images, labels)`` of step ``step`` on this rank, one row of
-        ``sub`` samples a chunk: the fixed rows in order, or this rank's part
-        of the step's order (``arange`` when unshuffled) gathered from the
-        resident epoch, only the order (int64) going to the device;
-        semi-stochastic, that order offset into round ``step % rounds``, or
-        that round's rows in that order gathered on the host and uploaded.
-        With several ranks a step draws without replacement, as the JAX
-        package's multi-process runs do."""
-        if not (self.shuffle or self.semi):
+        ``sub`` samples a chunk: this rank's part of the step's order
+        (``arange`` when unshuffled; semi-stochastic, into round ``step %
+        rounds``). Resident in order, the fixed rows; resident shuffled or
+        semi-stochastic, a gather from the resident set on the device, only
+        the order (int64) going there. Else the rows of the host set (or
+        round) in that order: streamed, as :class:`HostRows` that
+        :meth:`segments` brings to the device; not streamed, gathered on the
+        host and uploaded. The labels are on the device in every case. With
+        several ranks a step draws without replacement, as the JAX package's
+        multi-process runs do."""
+        if not (self.shuffle or self.semi) and self.images is not None:
             return self.images, self.labels
         hyp = self.cfg.hyp
         rows = self.num_blocks * self.chunks
@@ -257,17 +326,32 @@ class Trainer:
         replace = bool(hyp.get("sample_with_replacement", False)) and self.world.size == 1
         order = self.rank_rows(epoch_order(self.cfg.seed, step, n, replace)
                                if self.shuffle else np.arange(n))
-        if self.semi and self.images is None:
-            ds = self.bundle.baked.round(step)
-            images = torch.from_numpy(ds.images[order]).to(self.device)
-            labels = torch.from_numpy(ds.labels[order]).long().to(self.device)
-        else:
+        if self.images is not None:
             if self.semi:
                 order = order + (step % self.bundle.baked.rounds) * n
             idx = torch.from_numpy(order).to(self.device)
             images = self.images.index_select(0, idx)
             labels = self.labels.index_select(0, idx)
-        return images.view(rows, self.sub, *images.shape[1:]), labels.view(rows, self.sub)
+            return images.view(rows, self.sub, *images.shape[1:]), labels.view(rows, self.sub)
+        source = self.bundle.baked.round(step) if self.semi else self.bundle.train
+        labels = torch.from_numpy(source.labels[order]).long().to(self.device).view(rows, self.sub)
+        if self.streamed:
+            return HostRows(source.images, order, rows, self.sub,
+                            self.seg_blocks * self.chunks), labels
+        images = upload_rows(source.images, order, self.device, len(order))
+        return images.view(rows, self.sub, *images.shape[1:]), labels
+
+    def segments(self, images, labels):
+        """``(first row, images, labels)`` of each segment of the staged
+        rows on the device: one segment of all of them where they are
+        resident, else :func:`~..parallel.streaming.stream_segments` of the
+        :class:`HostRows`, whole blocks a segment. A segment is valid until
+        the next one is asked for."""
+        if not isinstance(images, HostRows):
+            yield 0, images, labels
+            return
+        for start, segment in stream_segments(images, self.device):
+            yield start, segment, labels[start:start + len(segment)]
 
     # -- inputs and forward -------------------------------------------------
     def _normalize(self, images):
@@ -316,8 +400,8 @@ class Trainer:
         return was_clipped
 
     def block(self, images, labels, bidx: int, gen):
-        """Block ``bidx`` of the staged rows, flat, augmented from ``gen``
-        and normalized: ``(x, labels)``."""
+        """Block ``bidx`` of the rows ``images`` (a segment's), flat,
+        augmented from ``gen`` and normalized: ``(x, labels)``."""
         rows = slice(bidx * self.chunks, (bidx + 1) * self.chunks)
         images, labels = images[rows].flatten(0, 1), labels[rows].flatten(0, 1)
         if self.bundle.augmentations_active:
@@ -332,9 +416,11 @@ class Trainer:
         are drawn from the step's generator ``gen``, before those of the main
         pass."""
         avg = [torch.zeros_like(p, dtype=self.acc_dtype) for p in self.params]
-        for bidx in range(self.num_blocks):
-            x, lbls = self.block(images, labels, bidx, gen)
-            self._add_to_mean(avg, self.regrad(self.params, x, lbls), bidx + 1)
+        for start, seg_images, seg_labels in self.segments(images, labels):
+            for b in range(len(seg_images) // self.chunks):
+                x, lbls = self.block(seg_images, seg_labels, b, gen)
+                self._add_to_mean(avg, self.regrad(self.params, x, lbls),
+                                  start // self.chunks + b + 1)
         return avg
 
     # -- one full-batch step --------------------------------------------------
@@ -351,22 +437,23 @@ class Trainer:
         sloss = torch.zeros((), dtype=self.stat_dtype, device=self.device)
         spreds = torch.zeros((), dtype=self.stat_dtype, device=self.device)
         sq_norms, clipped = [], []
-        for cidx in range(self.num_blocks * self.chunks):
-            chunk, lbls = images[cidx], labels[cidx]
-            if self.bundle.augmentations_active:
-                chunk = self.bundle.augment(chunk, gen)
-            x = self._normalize(chunk)
-            logits = self.forward(model, x)
-            loss = self.criterion(logits, lbls)
-            grads = torch.autograd.grad(loss, self.params)
-            sq_norms.append(tree_sqnorm(grads))
-            if self.reg_fn is not None:
-                grads = self.reg_fn(grads, self.params, x, lbls, pre_grads, lr)
-            was_clipped = self._add_to_mean(avg, grads, cidx + 1)
-            if was_clipped is not None:
-                clipped.append(was_clipped.to(torch.float32))
-            sloss = sloss + loss.detach() / self.chunks
-            spreds = spreds + (logits.argmax(-1) == lbls).to(self.stat_dtype).sum()
+        for start, seg_images, seg_labels in self.segments(images, labels):
+            for row in range(len(seg_images)):
+                chunk, lbls = seg_images[row], seg_labels[row]
+                if self.bundle.augmentations_active:
+                    chunk = self.bundle.augment(chunk, gen)
+                x = self._normalize(chunk)
+                logits = self.forward(model, x)
+                loss = self.criterion(logits, lbls)
+                grads = torch.autograd.grad(loss, self.params)
+                sq_norms.append(tree_sqnorm(grads))
+                if self.reg_fn is not None:
+                    grads = self.reg_fn(grads, self.params, x, lbls, pre_grads, lr)
+                was_clipped = self._add_to_mean(avg, grads, start + row + 1)
+                if was_clipped is not None:
+                    clipped.append(was_clipped.to(torch.float32))
+                sloss = sloss + loss.detach() / self.chunks
+                spreds = spreds + (logits.argmax(-1) == lbls).to(self.stat_dtype).sum()
 
         sq_norms = torch.stack(sq_norms)
         full_loss, param_norm = self.full_loss(lr, sloss, sq_norms)
@@ -563,19 +650,20 @@ class Trainer:
         sloss = torch.zeros((), dtype=self.stat_dtype, device=self.device)
         spreds = torch.zeros((), dtype=self.stat_dtype, device=self.device)
         sq_norms = []
-        for bidx in range(self.num_blocks):
-            x, lbls = self.block(images, labels, bidx, gen)
-            grads, loss, correct, sq_norm = self.block_grads(self.params, x, lbls, lr)
-            if self.sam_rho is not None:
-                norm = torch.sqrt(tree_sqnorm(grads))
-                perturbed = tree_add_scaled([p.detach() for p in self.params], grads,
-                                            self.sam_rho / (norm + 1e-12))
-                grads, _, _, _ = self.block_grads([p.requires_grad_() for p in perturbed],
-                                                  x, lbls, lr)
-            self.sgd_update(state.optimizer, grads, lr)
-            sloss = sloss + loss
-            spreds = spreds + correct
-            sq_norms.append(sq_norm)
+        for _, seg_images, seg_labels in self.segments(images, labels):
+            for b in range(len(seg_images) // self.chunks):
+                x, lbls = self.block(seg_images, seg_labels, b, gen)
+                grads, loss, correct, sq_norm = self.block_grads(self.params, x, lbls, lr)
+                if self.sam_rho is not None:
+                    norm = torch.sqrt(tree_sqnorm(grads))
+                    perturbed = tree_add_scaled([p.detach() for p in self.params], grads,
+                                                self.sam_rho / (norm + 1e-12))
+                    grads, _, _, _ = self.block_grads([p.requires_grad_() for p in perturbed],
+                                                      x, lbls, lr)
+                self.sgd_update(state.optimizer, grads, lr)
+                sloss = sloss + loss
+                spreds = spreds + correct
+                sq_norms.append(sq_norm)
 
         sq_norms = torch.stack(sq_norms)
         full_loss, param_norm = self.full_loss(lr, sloss, sq_norms)
@@ -591,24 +679,37 @@ class Trainer:
     @torch.no_grad()
     def eval_step(self, model, images, labels, weights):
         """Weighted loss and accuracy over the staged validation blocks of
-        every rank: this rank's sums, then one ``all_reduce``."""
+        every rank (resident, or :class:`HostRows` streamed in segments),
+        each block in ``eval_chunks`` sub-chunks: this rank's sums, then one
+        ``all_reduce``."""
         model.eval()
         sums = torch.zeros(3, dtype=self.stat_dtype, device=self.device)
-        for blk in range(images.shape[0]):
-            x = self._normalize(self.bundle.eval_transform(images[blk]))
-            lbls, w = labels[blk], weights[blk]
-            logits = self.forward(model, x)
-            if self.cfg.hyp.test_time_flips:
-                flipped = self.forward(model, x.flip(2))
-                outputs = torch.softmax(logits, -1) + torch.softmax(flipped, -1)
-            else:
-                outputs = logits
-            losses = -torch.log_softmax(outputs, -1)[torch.arange(lbls.shape[0], device=lbls.device), lbls]
-            correct = (outputs.argmax(-1) == lbls).to(torch.float32) * w
-            sums += torch.stack([(losses * w).sum(), correct.sum(), w.sum()]).to(self.stat_dtype)
+        for start, seg_images, seg_labels in self.segments(images, labels):
+            for row in range(len(seg_images)):
+                block = torch.zeros(3, dtype=self.stat_dtype, device=self.device)
+                piece = seg_images.shape[1] // self.eval_chunks
+                for x, lbls, w in zip(seg_images[row].split(piece), seg_labels[row].split(piece),
+                                      weights[start + row].split(piece)):
+                    block += self._eval_sums(model, x, lbls, w)
+                sums += block
         model.train()
         all_reduce(self.world, sums)
         return {"valid_loss": sums[0] / sums[2], "valid_acc": sums[1] / sums[2]}
+
+    def _eval_sums(self, model, images, lbls, w):
+        """``[weighted loss, weighted correct, weight]`` sums of some
+        validation samples."""
+        x = self._normalize(self.bundle.eval_transform(images))
+        logits = self.forward(model, x)
+        if self.cfg.hyp.test_time_flips:
+            flipped = self.forward(model, x.flip(2))
+            outputs = torch.softmax(logits, -1) + torch.softmax(flipped, -1)
+        else:
+            outputs = logits
+        picked = torch.arange(lbls.shape[0], device=lbls.device)
+        losses = -torch.log_softmax(outputs, -1)[picked, lbls]
+        correct = (outputs.argmax(-1) == lbls).to(torch.float32) * w
+        return torch.stack([(losses * w).sum(), correct.sum(), w.sum()]).to(self.stat_dtype)
 
 
 def _to_host(metrics: dict) -> dict:
@@ -676,7 +777,7 @@ def train(model: nn.Module, bundle: DataBundle, cfg, device="cuda", stats=None,
 def _train_loop(trainer: Trainer, state: TrainState, bundle: DataBundle, cfg, writer, stats):
     hyp = cfg.hyp
     val_data = stage_validation(bundle, bundle.batch_size, trainer.device, dryrun=cfg.dryrun,
-                                world=trainer.world)
+                                world=trainer.world, cfg_impl=cfg.impl)
     while state.step < hyp.steps:
         t0 = time.time()
         # the configured mode before hyp.train_switch_stochastic, the other

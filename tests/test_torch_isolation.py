@@ -6,6 +6,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -28,7 +29,8 @@ def _modules():
 def test_importing_every_module_loads_no_jax():
     assert {"fullbatchtraining_tpu_torch.data.baked",
             "fullbatchtraining_tpu_torch.data.policy_augment",
-            "fullbatchtraining_tpu_torch.parallel"} <= set(_modules())
+            "fullbatchtraining_tpu_torch.parallel",
+            "fullbatchtraining_tpu_torch.parallel.streaming"} <= set(_modules())
     script = f"""
 import importlib, sys
 for name in {_modules()!r}:
@@ -108,8 +110,7 @@ BOUNDARIES = {
     "lars": ["hyp/optim_modification=LARS"],
     "larc": ["hyp/optim_modification=LARC"],
     "fista": ["hyp/optim=fista"],
-    # the shuffled epoch stays on the card whole; a larger one would stream
-    "shuffle-over-budget": ["hyp.shuffle=True", "impl.device_shuffle_max_bytes=1"],
+    "gd-agc": ["hyp/optim=gd_agc"],
     "analysis": ["analysis=full"],
     "trace": ["impl.trace=True"],
     "float16-compute": ["impl.compute_dtype=float16"],
@@ -118,8 +119,16 @@ BOUNDARIES = {
     "vgg": ["model=vgg11"],
     "densenet": ["model=densenet121"],
     "groupnorm": ["model.normalization=GroupNorm"],
-    "random-resized-crop": ["+data.augmentations_train.RandomResizedCrop=32"],
+    "gd-clip": ["hyp/optim=gd_clip"],
     "lbfgs": ["hyp/optim=lbfgs"],
+    "pyramidnet": ["model=pyramidnet110"],
+    "nfnet": ["model=nfn"],
+}
+# modes that raised until the streamed epochs and other datasets came in
+FORMER_BOUNDARIES = {
+    # the shuffled epoch above the device gather's limit: gathered on the host
+    "shuffle-over-budget": ["hyp.shuffle=True", "impl.device_shuffle_max_bytes=1"],
+    "random-resized-crop": ["+data.augmentations_train.RandomResizedCrop=32"],
     "tinyimagenet": ["data=TinyImageNet"],
     "resize-eval": ["+data.augmentations_val.Resize=32"],
 }
@@ -144,6 +153,29 @@ def test_modes_outside_the_slice_raise(case, config_dir):
     item = re.search(r"ROADMAP\.md, '([^']+)'", str(err.value))
     assert item, str(err.value)
     assert f"**{item.group(1)}" in (ROOT / "ROADMAP.md").read_text(), item.group(1)
+
+
+@pytest.mark.parametrize("case", list(FORMER_BOUNDARIES))
+def test_modes_now_in_the_slice_run(case, config_dir):
+    """A mode that once raised NotImplementedError runs a dryrun step and
+    its evaluation on the CPU (on one intra-op thread: tiny ops, which
+    several test workers with a thread per core each slow down)."""
+    from fullbatchtraining_tpu_torch.config import load_config
+    from fullbatchtraining_tpu_torch.data import construct_databundle
+    from fullbatchtraining_tpu_torch.models import construct_model
+    from fullbatchtraining_tpu_torch.training import train
+
+    cfg = load_config(config_dir, overrides=TINY + FORMER_BOUNDARIES[case])
+    bundle = construct_databundle(cfg.data, dryrun=True)
+    model = construct_model(cfg.model, bundle.channels, bundle.classes)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _, stats = train(model, bundle, cfg, device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    assert len(stats["train_loss"]) == 1 and len(stats["valid_loss"]) == 1
+    assert all(np.isfinite(stats["train_loss"] + stats["valid_loss"]))
 
 
 BAKED = ["data/db=baked", "data.db.rounds=2", "data.augmentations_train="]

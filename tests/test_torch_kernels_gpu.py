@@ -5,9 +5,10 @@ Marked ``gpu``: they skip where CUDA is absent. Run them on a card with
     python -m pytest -m gpu tests/test_torch_kernels_gpu.py
 
 Shapes are ResNet-18's BN inputs at a small batch (stage 1 and 4) plus two
-with ragged row counts and channel counts of 96 and 40, and (``SGD_SHAPES``)
+with ragged row counts and channel counts of 96 and 40, (``SGD_SHAPES``)
 its four stages at ``hyp=base_sgd``'s blocks of 128 images and the paper's
-chunks of 32. Every kernel also runs at the edges of its two widths (16 bytes a
+chunks of 32, and (``IMAGENET_SHAPES``) its first stage at 224 px, a chunk
+of 128 ImageNet images. Every kernel also runs at the edges of its two widths (16 bytes a
 thread, or one element): a channel count below, across and above one
 256-thread block's row, one that no 16-byte group divides, one row, a ragged
 row count, and an operand 1 element off 16-byte alignment; the reductions
@@ -28,6 +29,7 @@ pytestmark = pytest.mark.gpu
 SHAPES = [(8 * 1024, 64), (8 * 16, 512), (1000, 96), (333, 40)]
 SGD_SHAPES = [(b * hw, c) for b in (128, 32) for hw, c in ((1024, 64), (256, 128), (64, 256),
                                                            (16, 512))]
+IMAGENET_SHAPES = [(128 * 224 * 224, 64)]
 EDGE_C = [3, 12, 64, 520, 4096]
 EDGE_M = [1, 333, 16 * 512]
 DTYPES = [torch.float32, torch.bfloat16, torch.float64]
@@ -80,7 +82,7 @@ def _assert_elementwise_close(ours, ref, magnitude, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("shape", SHAPES + SGD_SHAPES, ids=str)
+@pytest.mark.parametrize("shape", SHAPES + SGD_SHAPES + IMAGENET_SHAPES, ids=str)
 def test_reductions_match_plain(cuda, shape, dtype):
     x = _data(shape, dtype, cuda, 0)
     dy = _data(shape, dtype, cuda, 1)
@@ -100,7 +102,7 @@ def test_reductions_match_plain(cuda, shape, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("shape", SHAPES + SGD_SHAPES, ids=str)
+@pytest.mark.parametrize("shape", SHAPES + SGD_SHAPES + IMAGENET_SHAPES, ids=str)
 def test_elementwise_match_plain(cuda, shape, dtype):
     x = _data(shape, dtype, cuda, 2)
     dy = _data(shape, dtype, cuda, 3)
@@ -332,4 +334,44 @@ def test_nccl_group_of_one_step_is_bitwise_the_step_without(cuda):
     assert ours_launches == ref_launches and ref_launches["stats"] == 20 * 4
     assert [k for k in ref if not torch.equal(ours[k], ref[k])] == []
     assert {k: v for k, v in ours_stats.items() if k != "train_time"} == {
+        k: v for k, v in ref_stats.items() if k != "train_time"}
+
+
+@pytest.mark.parametrize("shuffle", [False, True], ids=["in-order", "shuffled"])
+def test_streamed_step_is_bitwise_the_resident_step(cuda, shuffle):
+    """One ``hyp=fb1`` step (ResNet-18 at width 8, 512 images in chunks of
+    128) through ``train()`` with the epoch streamed from pinned host
+    buffers on a side stream, a block a segment: params, running stats and
+    stats bitwise those of the resident step, the same launches, and the
+    epoch's bytes copied host to device."""
+    from pathlib import Path
+
+    from fullbatchtraining_tpu_torch.config import load_config
+    from fullbatchtraining_tpu_torch.data import construct_databundle
+    from fullbatchtraining_tpu_torch.models import construct_model
+    from fullbatchtraining_tpu_torch.parallel import streaming
+    from fullbatchtraining_tpu_torch.training import train
+
+    root = Path(__file__).resolve().parent.parent
+    base = ["model=resnet18", "model.width=8", "hyp=fb1", "data.size=512", "hyp.steps=1",
+            "hyp.warmup=0", f"data.path={root / 'build' / 'no_data'}", "seed=0",
+            f"hyp.shuffle={shuffle}"]
+    runs = []
+    for extra in ([], ["impl.hbm_epoch_max_bytes=600000"]):   # 393,216 bytes a block
+        cfg = load_config(root / "config", overrides=base + extra)
+        bundle = construct_databundle(cfg.data)
+        model = construct_model(cfg.model, bundle.channels, bundle.classes)
+        bn.reset_counts()
+        streaming.reset_counts()
+        state, stats = train(model, bundle, cfg, device="cuda")
+        torch.cuda.synchronize()
+        runs.append((state.model.state_dict(), stats, dict(bn.launches),
+                     dict(streaming.counts)))
+    (ref, ref_stats, ref_launches, none), (ours, stats, launches, counts) = runs
+    assert none == {"segments": 0, "h2d_bytes": 0}
+    # the 102 validation images, one block, stay resident
+    assert counts == {"segments": 4, "h2d_bytes": 512 * 32 * 32 * 3}, counts
+    assert launches == ref_launches and ref_launches["stats"] == 20 * 4
+    assert [k for k in ref if not torch.equal(ours[k], ref[k])] == []
+    assert {k: v for k, v in stats.items() if k != "train_time"} == {
         k: v for k, v in ref_stats.items() if k != "train_time"}
