@@ -43,8 +43,9 @@ Phases, in order; any failure exits non-zero before the result lines:
    forward differences): exactly twice phase 4's launches of ``stats``,
    ``bwd_reduce`` and ``bwd_apply``, all at 16 bytes a thread; its profile as
    in phase 5; one ``autograd`` step through ``training.train`` and its
-   profile; and ``||reg_fn(g) - g|| / ||g||`` of one chunk under bf16 and in
-   float32, beside the exact float32 value.
+   profile, both cut to 4 chunks (8,192 images); and ``||reg_fn(g) - g|| /
+   ||g||`` of one chunk under bf16 and in float32, beside the exact float32
+   value.
 8. The SGD baseline, shuffled epochs, SAM and checkpoints. (a) Phase 2's
    check at the BN shapes of a block of 128 and a chunk of 32 images, where
    the host's time to issue a call can exceed the kernel's. (b)
@@ -101,6 +102,18 @@ Phases, in order; any failure exits non-zero before the result lines:
    whole blocks. (d) A PIL-written JPEG tree loaded twice through ``python
    -m fullbatchtraining_tpu_torch data=ImageNet dryrun=True``: the second
    run reads the first one's cache.
+12. The optimizer zoo, at phase 4's width, data and chunks (bf16,
+   ``hyp.warmup=0``). (a) ``hyp/optim=lbfgs`` (Wolfe, history 10), 2
+   steps: the closure evaluations of each step, ``lbfgs_t``, step time,
+   peak memory, the driver's flat-vector bytes and host syncs; each
+   kernel's launches exactly the evaluations times a full-batch pass (phase
+   4's launches a step less its validation's) plus the validations'. (b)
+   L-BFGS at phase 8e's size in float32: 2 steps straight through against
+   1 step, an async checkpoint and a fresh model resumed, bitwise in
+   params, running stats, ``s_hist``/``y_hist`` and the rest of the driver
+   state. (c) One step each of ``hyp.optim.line_search=wolfe``,
+   ``hyp/optim=adam hyp/optim_modification=LARC``, ``hyp/optim=gd_agc`` and
+   ``hyp/optim=gd_clip``: evaluations, step time, loss, exact launches.
 
 The last lines are the card line, a JSON object of per-kernel numbers (their
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` sum the 20 BN layers of
@@ -108,8 +121,9 @@ one bf16 chunk of 2048 images, ``stem_224`` times the 224 px first-stage
 layer alone; ``launches`` counts phase 4, ``launches_gradreg`` phase 7,
 ``launches_sgd`` phase 8c, ``launches_fb_shuffle`` phase 8d,
 ``launches_baked`` phase 9b, ``launches_dist`` phase 10a,
-``launches_tinyimagenet`` 11a, ``launches_streamed`` 11b and
-``launches_imagenet`` 11c), and ``{"ok": true, "device": {...}}``.
+``launches_tinyimagenet`` 11a, ``launches_streamed`` 11b,
+``launches_imagenet`` 11c and ``launches_zoo`` 12a), and ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -617,6 +631,10 @@ def phase_profile(torch, hyp="fb1", extra=(), base=FULL_WIDTH, wall_ms=None, war
 # ---------------------------------------------------------------------------
 
 GRADREG_VARIANT = "hyp.grad_reg.implementation={}"
+# the autograd step and its trace over 4 of the epoch's 25 chunks: the trace
+# of a whole epoch holds some 100,000 kernels, whose processing took most of
+# phase 7's time
+AUTOGRAD_CUT = ["data.size=8192"]
 
 
 def phase_gradreg_fp32(torch, bn):
@@ -708,7 +726,8 @@ def phase_gradreg_full_width(torch, bn, fb1):
     log("  one autograd step through training.train:")
     bn.reset_counts()
     _, _, _, _, stats = run_main_path(
-        torch, FULL_WIDTH + ["hyp.steps=1", GRADREG_VARIANT.format("autograd")], "gradreg")
+        torch, FULL_WIDTH + AUTOGRAD_CUT + ["hyp.steps=1", GRADREG_VARIANT.format("autograd")],
+        "gradreg")
     auto = {"step_s": stats["train_time"][0], "train_loss": stats["train_loss"][0],
             "valid_loss": stats["valid_loss"][0],
             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -726,7 +745,7 @@ def phase_gradreg_full_width(torch, bn, fb1):
     # the train() step above warmed the process for these shapes and timed
     # an untraced step: one traced step is enough
     result["autograd profile"] = phase_profile(torch, "gradreg",
-                                               [GRADREG_VARIANT.format("autograd")],
+                                               AUTOGRAD_CUT + [GRADREG_VARIANT.format("autograd")],
                                                wall_ms=1e3 * auto["step_s"], warm_up=False)
     result["regularizer size"] = regularizer_sizes(torch)
     return result
@@ -1389,7 +1408,7 @@ def phase_dist_one(torch, bn, fb1):
         f"launches {counts}; {len(differ)} of {len(ref)} tensors and stats {stats_differ} differ")
     check(not differ and not stats_differ,
           f"the step in a group of one differs: tensors {differ[:5]}, stats {stats_differ}")
-    check(calls == {"all_reduce": 1 + evals, "broadcast": 0, "barrier": 0},
+    check(calls == {"all_reduce": 1 + evals, "all_gather": 0, "broadcast": 0, "barrier": 0},
           f"collectives {calls}, expected 1 all_reduce for the step and 1 an evaluation")
     check(counts == fb1_step_launches(fb1),
           f"launches {counts}, phase 4's a step {fb1_step_launches(fb1)}")
@@ -1504,7 +1523,7 @@ def phase_dist_two(torch, bn):
     check(all(2 * r["launches"][k] == one[k] for r in ranks for k in KERNELS),
           f"launches a rank {result['launches']}, not half of {one}")
     check(result["params_equal"], "the two ranks end with different params")
-    check(all(c == {"all_reduce": 2, "broadcast": 0, "barrier": 0}
+    check(all(c == {"all_reduce": 2, "all_gather": 0, "broadcast": 0, "barrier": 0}
               for c in result["collectives"]),
           f"collectives {result['collectives']}, expected 1 all_reduce a step and 1 an evaluation")
     return result
@@ -1859,6 +1878,164 @@ def phase_jpeg_tree(torch):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the optimizer zoo
+# ---------------------------------------------------------------------------
+
+LBFGS = ["hyp/optim=lbfgs"]          # Wolfe, history 10, as its yaml has it
+ZOO_STEP = ["hyp.steps=1"]
+ZOO_ONE_STEP = {"wolfe-gd": ["hyp.optim.line_search=wolfe"],
+                "adamw-larc": ["hyp/optim=adam", "hyp/optim_modification=LARC"],
+                "gd-agc": ["hyp/optim=gd_agc"], "gd-clip": ["hyp/optim=gd_clip"]}
+
+
+def zoo_run(torch, bn, extra, bundle=None):
+    """``training.train`` of ``FULL_WIDTH + extra`` with the launch counts set to 0
+    just before it. Returns the config, bundle, final state, stats, the
+    run's closure driver (None for a per-step optimizer), the closure
+    evaluations of each step and the launches."""
+    from fullbatchtraining_tpu_torch.training import training
+
+    drivers, evaluations = [], []
+    make, evaluate = training.make_closure_step, training.ClosureEvals.gradient_eval
+
+    def capture(*args):
+        drivers.append(make(*args))
+        return drivers[-1]
+
+    def counted(self, state, images, labels):
+        evaluations.append(state.step)
+        return evaluate(self, state, images, labels)
+
+    training.make_closure_step, training.ClosureEvals.gradient_eval = capture, counted
+    try:
+        bn.reset_counts()
+        cfg, bundle, _, state, stats = run_main_path(torch, FULL_WIDTH + list(extra),
+                                                     bundle=bundle)
+        counts, wide = dict(bn.launches), dict(bn.vector_launches)
+    finally:
+        training.make_closure_step, training.ClosureEvals.gradient_eval = make, evaluate
+    steps = len(stats["train_loss"])
+    per_step = [evaluations.count(s) for s in range(steps)]
+    return cfg, bundle, state, stats, (drivers or [None])[0], per_step, counts, wide
+
+
+def check_zoo_launches(torch, name, bundle, cfg, stats, passes, counts, wide):
+    """Each kernel's launches are exactly ``passes`` full-batch passes (a
+    pass: phase 4's launches a step less its validation's) plus the
+    validations', all at 16 bytes a thread."""
+    expected = step_launches(torch, bundle, cfg, passes, len(stats["valid_loss"]))
+    check(counts == expected, f"{name}: launches {counts}, {passes} passes and "
+          f"{len(stats['valid_loss'])} validations give {expected}")
+    check(wide == counts, f"{name}: 16-byte launches {wide} of {counts}")
+    check(all(map(math.isfinite, stats["train_loss"] + stats["valid_loss"])),
+          f"{name}: non-finite loss")
+
+
+def phase_zoo_lbfgs(torch, bn, fb1):
+    """12a: ``hyp/optim=lbfgs`` (Wolfe, history 10) at phase 4's width and
+    chunks, 2 steps: each step's closure evaluations, ``lbfgs_t``, step
+    time, peak memory, the driver's vector bytes and host syncs; launches
+    exactly the evaluations times a pass plus the validations'."""
+    cfg, bundle, _, stats, driver, per_step, counts, wide = zoo_run(
+        torch, bn, LBFGS + ["hyp.steps=2"])
+    passes = sum(per_step)
+    check(fb1["launches"]["stats"] % 3 == 0 and step_launches(torch, bundle, cfg, 1, 0)["stats"]
+          == fb1["launches"]["stats"] // 3, "a pass's launches are not phase 4's a step")
+    check_zoo_launches(torch, "L-BFGS", bundle, cfg, stats, passes, counts, wide)
+    check(driver is not None and driver.n_iter == 2 and len(stats["lbfgs_t"]) == 2,
+          "the L-BFGS driver did not take 2 steps")
+    result = {"evaluations_per_step": per_step, "lbfgs_t": stats["lbfgs_t"],
+              "step_s": stats["train_time"], "s_per_evaluation": [
+                  t / n for t, n in zip(stats["train_time"], per_step)],
+              "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "vector_bytes": driver.vector_bytes(), "history_pairs": len(driver.s_hist),
+              "host_syncs_per_step": driver.syncs / 2, "train_loss": stats["train_loss"],
+              "valid_loss": stats["valid_loss"], "launches": counts, "bundle": bundle}
+    log(f"  evaluations a step {per_step}; lbfgs_t {stats['lbfgs_t']}; step "
+        f"{', '.join(f'{t:.3f}' for t in stats['train_time'])} s "
+        f"({', '.join(f'{t:.3f}' for t in result['s_per_evaluation'])} s an evaluation; phase "
+        f"4: {', '.join(f'{t:.3f}' for t in fb1['step_s'])} s a step); peak "
+        f"{result['peak_memory_gib']:.2f} GiB; driver vectors "
+        f"{result['vector_bytes'] / 1e9:.3f} GB ({len(driver.s_hist)} pairs); host syncs "
+        f"{result['host_syncs_per_step']:.1f} a step; train loss {stats['train_loss']}; "
+        f"launches {counts}")
+    return result
+
+
+def phase_zoo_resume(torch):
+    """12b: L-BFGS at phase 8e's size in float32, 2 steps straight through
+    and as 1 step saved by the async writer, then a fresh model resumed to
+    step 2: params, running stats, ``s_hist``/``y_hist`` (and the rest of
+    the driver state) and the stats bitwise equal."""
+    import shutil
+
+    from fullbatchtraining_tpu_torch.data import construct_databundle
+    from fullbatchtraining_tpu_torch.models import construct_model
+    from fullbatchtraining_tpu_torch.training import train
+
+    folder = ROOT / "build" / "chip_smoke_zoo_resume"
+    shutil.rmtree(folder, ignore_errors=True)
+    folder.mkdir(parents=True)
+
+    def run(steps, extra=()):
+        cfg = main_path_config(FP32_STEP + LBFGS + ["hyp.scheduler=none", f"hyp.steps={steps}",
+                                                    *extra])
+        cfg.original_cwd = str(folder)
+        bundle = construct_databundle(cfg.data, cfg.impl, cfg.hyp, seed=cfg.seed)
+        model = construct_model(cfg.model, bundle.channels, bundle.classes, seed=cfg.seed)
+        _, stats = train(model, bundle, cfg, device=DEVICE)
+        torch.cuda.synchronize()
+        return stats
+
+    straight_stats = run(2, ["impl.checkpoint.name=straight.ckpt"])
+    run(1, ["impl.checkpoint.name=resume.ckpt", "impl.checkpoint.async_save=True"])
+    resumed_stats = run(2, ["impl.checkpoint.name=resume.ckpt"])
+    straight, resumed = (torch.load(folder / "checkpoints" / name, map_location="cpu",
+                                    weights_only=True) for name in ("straight.ckpt", "resume.ckpt"))
+    shutil.rmtree(folder, ignore_errors=True)
+
+    def tensors(payload):
+        out = {f"model/{k}": v for k, v in payload["model"].items()}
+        for key, value in payload["driver"].items():
+            for i, v in enumerate(value if isinstance(value, list) else [value]):
+                out[f"driver/{key}/{i}"] = v if isinstance(v, torch.Tensor) else torch.tensor(v)
+        return out
+
+    ours, theirs = tensors(straight), tensors(resumed)
+    differ = [k for k in ours if k not in theirs or not torch.equal(ours[k], theirs[k])]
+    stats_differ = [k for k, v in resumed_stats.items()
+                    if k != "train_time" and v != straight_stats[k][1:]]
+    pairs = len(straight["driver"]["s_hist"])
+    log(f"  {len(ours)} tensors and scalars (params, running stats, driver state with {pairs} "
+        f"curvature pair): {len(differ)} differ; stats of step 2 that differ: {stats_differ}; "
+        f"lbfgs_t {straight_stats['lbfgs_t']}")
+    check(straight["step"] == resumed["step"] == 2 and pairs == 1, "no curvature pair to compare")
+    check(ours.keys() == theirs.keys() and not differ, f"resumed state differs: {differ[:5]}")
+    check(not stats_differ, f"resumed stats differ: {stats_differ}")
+    return {"tensors": len(ours), "differ": differ, "stats_differ": stats_differ,
+            "lbfgs_t": straight_stats["lbfgs_t"]}
+
+
+def phase_zoo_one_step(torch, bn, bundle):
+    """12c: one full-width step of each of ``ZOO_ONE_STEP``: its closure
+    evaluations (one pass for a per-step optimizer), step time, loss and
+    launches, exactly that many passes plus the validation's."""
+    result = {}
+    for name, extra in ZOO_ONE_STEP.items():
+        cfg, _, _, stats, driver, per_step, counts, wide = zoo_run(
+            torch, bn, extra + ZOO_STEP, bundle=bundle)
+        passes = sum(per_step) if driver is not None else 1
+        check_zoo_launches(torch, name, bundle, cfg, stats, passes, counts, wide)
+        result[name] = {"evaluations": passes, "step_s": stats["train_time"][0],
+                        "train_loss": stats["train_loss"][0],
+                        "valid_loss": stats["valid_loss"][0], "launches": counts}
+        log(f"  {name}: {passes} evaluations, step {stats['train_time'][0]:.3f} s, train loss "
+            f"{stats['train_loss'][0]:.4f}, valid loss {stats['valid_loss'][0]:.4f}, launches "
+            f"{counts}")
+    return result
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write every measurement to this JSON file")
@@ -1951,6 +2128,14 @@ def main() -> int:
     imagenet = phase_imagenet(torch, bn)
     phase("[11d] a JPEG ImageFolder tree through the CLI, twice: decoded, then cached")
     jpeg = phase_jpeg_tree(torch)
+    phase("[12a] hyp/optim=lbfgs at full width: Wolfe, history 10, 2 steps, bf16")
+    zoo_lbfgs = phase_zoo_lbfgs(torch, bn, full)
+    zoo_bundle = zoo_lbfgs.pop("bundle")
+    phase("[12b] L-BFGS resumed from a checkpoint: bitwise equal to the straight run, float32")
+    zoo_resume = phase_zoo_resume(torch)
+    phase("[12c] one full-width step each: Wolfe GD, AdamW under LARC, GD-AGC, GD-clip")
+    zoo_steps = phase_zoo_one_step(torch, bn, zoo_bundle)
+    del zoo_bundle
 
     kernels = []
     for name in ("stats", "apply", "bwd_reduce", "bwd_apply"):
@@ -1970,6 +2155,7 @@ def main() -> int:
             "launches_tinyimagenet": tiny["launches"][name],
             "launches_streamed": tiny_streamed["launches"][name],
             "launches_imagenet": imagenet["launches"][name],
+            "launches_zoo": zoo_lbfgs["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": "bytes", "library_ms": total("library_ms"),
@@ -1991,6 +2177,7 @@ def main() -> int:
              "dist_one": dist_one, "dist_two": dist_two, "dist_resnet152": dist_152,
              "stem_kernel_rows": stem_rows, "tinyimagenet": tiny,
              "tinyimagenet_streamed": tiny_streamed, "imagenet": imagenet, "jpeg_tree": jpeg,
+             "zoo_lbfgs": zoo_lbfgs, "zoo_resume": zoo_resume, "zoo_steps": zoo_steps,
              "kernels": kernels}, indent=1, default=str))
     log(f"all phases passed in {time.time() - started:.0f} s")
     log(card)

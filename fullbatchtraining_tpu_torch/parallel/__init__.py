@@ -8,8 +8,9 @@ one card). A :class:`World` stands where the JAX package has the mesh's ``data``
 axis: ``rank`` is the index ``jax.lax.axis_index`` gives there, ``size`` the
 mesh's device count ``W``.
 
-The port calls three collectives and only these: :func:`all_reduce` (a sum),
-:func:`broadcast` and :func:`barrier`. Gloo takes all three for CUDA tensors
+The port calls four collectives and only these: :func:`all_reduce` (a sum),
+:func:`all_gather` (of L-BFGS's sharded vectors, ``impl.shard_opt_vectors``),
+:func:`broadcast` and :func:`barrier`. Gloo takes all four for CUDA tensors
 too. Each call adds one to ``calls[name]``. Without a process group (one
 process, ``group is None``) each returns its input and counts nothing.
 """
@@ -23,7 +24,7 @@ import os
 import torch
 import torch.distributed as dist
 
-calls = {"all_reduce": 0, "broadcast": 0, "barrier": 0}
+calls = {"all_reduce": 0, "all_gather": 0, "broadcast": 0, "barrier": 0}
 
 
 def reset_counts() -> None:
@@ -100,6 +101,17 @@ def all_reduce(world: World, tensor: torch.Tensor) -> torch.Tensor:
         calls["all_reduce"] += 1
         dist.all_reduce(tensor, group=world.group)
     return tensor
+
+
+def all_gather(world: World, tensor: torch.Tensor) -> torch.Tensor:
+    """The ranks' ``tensor``s (each of one length) concatenated in rank order."""
+    if world.group is None:
+        return tensor
+    calls["all_gather"] += 1
+    out = tensor.new_empty((world.size * tensor.shape[0], *tensor.shape[1:]))
+    gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+    gather(out, tensor.contiguous(), group=world.group)
+    return out
 
 
 def broadcast(world: World, value: int) -> int:

@@ -1,10 +1,27 @@
-"""Learning-rate schedules and the SGD optimizer
+"""Learning-rate schedules and the optimizer interface
 (``fullbatchtraining_tpu/training/optimizers.py``).
 
-The schedule is a pure function of the step counter. The optimizer is
-``torch.optim.SGD``, which is what the JAX package's ``torch_sgd`` was
-written to reproduce (momentum buffer = gradient on the first step,
-dampening, Nesterov, coupled weight decay).
+The schedule is a pure function of the step counter. Each per-step optimizer
+is a ``torch.optim.Optimizer``, so a checkpoint carries its state through
+``state_dict()``:
+
+* ``Gradient Descent``: ``torch.optim.SGD``, which is what the JAX package's
+  ``torch_sgd`` was written to reproduce (momentum buffer = gradient on the
+  first step, dampening, Nesterov, coupled weight decay);
+* ``Adam``: ``torch.optim.AdamW``, which its ``torch_adamw`` reproduces
+  (decoupled weight decay, ``amsgrad``). Its bias corrections are Python
+  floats, the JAX function's are at the parameters' precision: the same
+  numbers in float64, about 1e-8 apart in float32;
+* ``GD-AGC``, ``Adaptive Gradient Descent`` and ``FISTA``: :mod:`.opt.agc`,
+  :mod:`.opt.adaptive_clipping`, :mod:`.opt.fista`;
+* ``hyp/optim_modification=LARS|LARC`` wraps any of them (:mod:`.opt.lars`),
+  which then applies the weight decay that the inner optimizer's groups no
+  longer have.
+
+``Gradient Descent`` with ``hyp.optim.line_search``, FISTA with
+``line_search=backtracking`` and ``L-BFGS`` are closure optimizers: their
+step re-evaluates the full gradient, and :mod:`.opt.closures` drives it.
+``info["closure"]`` names the driver; L-BFGS has no per-step optimizer.
 """
 
 from __future__ import annotations
@@ -16,7 +33,10 @@ from typing import Callable
 import torch
 from torch import nn
 
+from ..convert import jax_param_paths
+
 NO_WD_PATTERN = re.compile(r"(bias|gain)|skip_gain")
+CLOSURE_OPTIMIZERS = {"wolfe", "non-monotone", "restarting"}
 
 
 def make_lr_schedule(cfg_hyp) -> Callable[[int], float]:
@@ -65,33 +85,86 @@ def make_lr_schedule(cfg_hyp) -> Callable[[int], float]:
     return schedule
 
 
-def make_optimizer(model: nn.Module, cfg_hyp) -> torch.optim.SGD:
-    """``torch.optim.SGD`` for ``hyp.optim.name == 'Gradient Descent'``; with
-    ``hyp.only_linear_layers_weight_decay`` the parameters whose name matches
-    NO_WD_PATTERN form a group without weight decay. The lr is set per step
-    from the schedule. ``hyp.optim_modification`` may be SAM, which the
-    trainer applies; LARS and LARC raise."""
+def wd_flags(model: nn.Module) -> list[bool]:
+    """True for each of ``model``'s params (in ``parameters()`` order) that
+    weight decay applies to under ``hyp.only_linear_layers_weight_decay``:
+    NO_WD_PATTERN matched against its JAX path, as the JAX ``wd_mask`` does
+    (against its torch name for a module that has no JAX layout)."""
+    try:
+        paths = jax_param_paths(model)
+    except TypeError:
+        paths = [name.lower() for name, _ in model.named_parameters()]
+    return [NO_WD_PATTERN.search(path) is None for path in paths]
+
+
+def param_groups(params, flags, weight_decay: float) -> list[dict]:
+    """One group at ``weight_decay``, or with ``flags`` the flagged params at
+    ``weight_decay`` and the others in a group without it."""
+    if flags is None:
+        return [{"params": list(params), "weight_decay": weight_decay}]
+    return [{"params": [p for p, f in zip(params, flags) if f], "weight_decay": weight_decay},
+            {"params": [p for p, f in zip(params, flags) if not f], "weight_decay": 0.0}]
+
+
+def optim_interface(model: nn.Module, cfg_hyp):
+    """``(optimizer, info)`` for ``cfg_hyp``, with the JAX ``optim_interface``'s
+    dispatch and errors: ``info = {"closure": driver kind or None,
+    "modification": hyp.optim_modification.name}``. The optimizer is None for
+    L-BFGS. The lr is set per step from the schedule."""
     optim = cfg_hyp.optim
-    if optim.name != "Gradient Descent" or optim.get("line_search", "none") != "none":
-        raise NotImplementedError(
-            f"optimizer {optim.name!r} (line search {optim.get('line_search')!r}) is not "
-            "ported yet (ROADMAP.md, 'Optimizer zoo')")
+    name = optim.name
+    mod = cfg_hyp.optim_modification.name
+    info = {"closure": None, "modification": mod}
+    make_lr_schedule(cfg_hyp)   # an unknown scheduler raises here, as in JAX
+    params = list(model.parameters())
+    only_linear = bool(cfg_hyp.only_linear_layers_weight_decay)
+    flags = wd_flags(model) if only_linear else None
+    # LARS/LARC absorb the inner optimizer's weight decay
+    weight_decay = float(optim.get("weight_decay", 0.0) or 0.0)
+    inner_wd = 0.0 if mod in ("LARS", "LARC") else weight_decay
+    lr = float(optim.lr)
+
+    if name == "Gradient Descent":
+        line_search = optim.get("line_search", "none")
+        if line_search != "none":
+            if line_search not in CLOSURE_OPTIMIZERS:
+                raise ValueError(f"Invalid linesearch {line_search} defined.")
+            info["closure"] = line_search
+        optimizer = torch.optim.SGD(param_groups(params, flags, inner_wd), lr=lr,
+                                    momentum=optim.momentum, dampening=optim.dampening,
+                                    nesterov=optim.nesterov)
+    elif name == "Adam":
+        optimizer = torch.optim.AdamW(param_groups(params, flags, inner_wd), lr=lr,
+                                      betas=tuple(float(b) for b in optim.betas),
+                                      eps=float(optim.eps), amsgrad=bool(optim.amsgrad))
+    elif name == "Adaptive Gradient Descent":
+        from .opt.adaptive_clipping import AdaptiveClippedSGD
+        optimizer = AdaptiveClippedSGD(param_groups(params, flags, inner_wd), optim)
+    elif name == "GD-AGC":
+        from .opt.agc import SGDAGC
+        optimizer = SGDAGC(model, optim, only_linear_wd=only_linear, weight_decay=inner_wd)
+    elif name == "FISTA":
+        from .opt.fista import FISTA
+        if optim.get("line_search") in ("backtracking", "search"):
+            info["closure"] = "fista-search"
+        optimizer = FISTA(params, optim)
+    elif name == "L-BFGS":
+        info["closure"] = "lbfgs"
+        optimizer = None
+    else:
+        raise ValueError(f"Invalid optimizer {name} provided.")
+
+    if mod in ("LARS", "LARC") and optimizer is not None:
+        from .opt.lars import LARS
+        decays = [weight_decay if f else 0.0 for f in (flags or [True] * len(params))]
+        optimizer = LARS(optimizer, params, decays,
+                         trust_coefficient=float(cfg_hyp.optim_modification.trust_coefficient),
+                         clip=(mod == "LARC"), eps=float(cfg_hyp.optim_modification.eps))
     # SAM wraps the step (two gradients a step or a block, training.py), not
     # the optimizer
-    if cfg_hyp.optim_modification.name not in (None, "none", "SAM"):
-        raise NotImplementedError(
-            f"optim_modification {cfg_hyp.optim_modification.name!r} is not ported yet "
-            "(ROADMAP.md, 'Optimizer zoo')")
-    weight_decay = float(optim.get("weight_decay", 0.0) or 0.0)
-    named = list(model.named_parameters())
-    if cfg_hyp.only_linear_layers_weight_decay:
-        groups = [
-            {"params": [p for n, p in named if not NO_WD_PATTERN.search(n.lower())]},
-            {"params": [p for n, p in named if NO_WD_PATTERN.search(n.lower())],
-             "weight_decay": 0.0},
-        ]
-    else:
-        groups = [{"params": [p for _, p in named]}]
-    return torch.optim.SGD(groups, lr=float(optim.lr), momentum=optim.momentum,
-                           dampening=optim.dampening, nesterov=optim.nesterov,
-                           weight_decay=weight_decay)
+    return optimizer, info
+
+
+def make_optimizer(model: nn.Module, cfg_hyp):
+    """The optimizer of :func:`optim_interface`."""
+    return optim_interface(model, cfg_hyp)[0]

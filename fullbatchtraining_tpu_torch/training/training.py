@@ -20,10 +20,14 @@ forward over the block's ``chunks * sub`` images (regularized with no
 pre-pass, clipped to ``hyp.grad_clip`` in the 2-norm), then one EMA update.
 ``hyp/optim_modification=SAM`` takes the update's gradient at
 ``params + rho * g / ||g||``: a second block gradient in a stochastic step, a
-second full pass in a full-batch one. ``hyp.train_switch_stochastic`` inverts
-the mode from that step on. With ``hyp.shuffle`` each step reads the
-epoch in the order :func:`~..data.pipeline.epoch_order` draws for it,
-gathered on the device from the resident epoch. On a baked store
+second full pass in a full-batch one. A closure optimizer (a line search,
+FISTA's backtracking, L-BFGS; :mod:`.opt.closures`) replaces the update: its
+driver evaluates the full-batch gradient, or in a stochastic step each
+block's, as often as its search needs, and the EMA updates after it.
+``hyp.train_switch_stochastic`` inverts the mode from that step on. With
+``hyp.shuffle`` each step reads the epoch in the order
+:func:`~..data.pipeline.epoch_order` draws for it, gathered on the device
+from the resident epoch. On a baked store
 (``data.db``) a full-batch step reads all ``rounds x size`` images; with
 ``hyp.train_semi_stochastic`` step ``s`` reads round ``s % rounds`` alone.
 
@@ -62,6 +66,7 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
+from ..convert import jax_param_paths
 from ..data.augmentations import normalize as normalize_images
 from ..data.pipeline import DataBundle, epoch_layout, epoch_order, rank_rows, stream_plan
 from ..models.models import estimate_activation_bytes
@@ -70,7 +75,8 @@ from ..parallel import World, all_reduce, all_reduce_parts, barrier, current_wor
 from ..parallel.streaming import HostRows, host_tensor, stream_segments
 from ..utils import resolve_device
 from .grad_reg import make_grad_regularizer, tree_add_scaled, tree_sqnorm
-from .optimizers import make_lr_schedule, make_optimizer
+from .opt.closures import DriverState, make_closure_step, make_stochastic_closure_step
+from .optimizers import make_lr_schedule, make_optimizer, optim_interface
 from .utils import CheckpointWriter, checkpoint_file, load_checkpoint
 
 log = logging.getLogger(__name__)
@@ -87,7 +93,7 @@ _STREAM_STRIDE = 0x9E3779B97F4A7C15   # an odd 64-bit constant
 class TrainState:
     step: int
     model: nn.Module
-    optimizer: torch.optim.Optimizer
+    optimizer: torch.optim.Optimizer | None   # None for L-BFGS
     ema_model: nn.Module | None = None  # hyp.evaluate_ema: EMA of params and BN stats
 
 
@@ -612,13 +618,15 @@ class Trainer:
         return metrics
 
     # -- one stochastic step ----------------------------------------------------
-    def block_grads(self, params, x, labels, lr):
+    def block_grads(self, params, x, labels, lr, reduce_stats=False):
         """The SGD update's gradient of one block: one train-mode forward over
         this rank's part of the block at ``params`` (a list in
         ``self.params`` order), which updates the model's running stats; the
         regularizer with no pre-pass; the ranks' mean, through one
         ``all_reduce``; ``hyp.grad_clip`` in the 2-norm. Returns (grads, loss,
-        correct, squared norm before the regularizer)."""
+        correct, squared norm before the regularizer). With ``reduce_stats``
+        the same ``all_reduce`` also sums loss and correct over the ranks and
+        averages the running stats (a closure driver's block evaluation)."""
         hyp = self.cfg.hyp
         state = dict(zip(self.param_names, params))
         logits = self.forward(lambda inputs: functional_call(self.model, state, (inputs,)), x)
@@ -627,13 +635,24 @@ class Trainer:
         sq_norm = tree_sqnorm(grads)
         if self.reg_fn is not None:
             grads = self.reg_fn(grads, params, x, labels, None, lr)
+        loss = loss.detach()
+        correct = (logits.argmax(-1) == labels).to(self.stat_dtype).sum()
         if self.world.group is not None:
-            grads = all_reduce_parts(self.world, grads)
+            n = len(grads)
+            buffers = ([b for b in self.model.buffers() if b.is_floating_point()]
+                       if reduce_stats else [])
+            scalars = [torch.stack([loss.to(self.stat_dtype), correct])] if reduce_stats else []
+            summed = all_reduce_parts(self.world, [*grads, *buffers, *scalars])
+            grads = summed[:n]
             torch._foreach_div_(grads, self.world.size)
+            if reduce_stats:
+                loss, correct = summed[-1]
+                with torch.no_grad():
+                    for b, total in zip(buffers, summed[n:-1]):
+                        b.copy_(total / self.world.size)
         if hyp.grad_clip is not None:
             grads, _, _ = tree_clip_by_norm(grads, hyp.grad_clip, 2)
-        correct = (logits.argmax(-1) == labels).to(self.stat_dtype).sum()
-        return grads, loss.detach(), correct, sq_norm
+        return grads, loss, correct, sq_norm
 
     def stochastic_step(self, state: TrainState, images, labels):
         """One epoch of SGD, one update per block of the staged rows, all at
@@ -675,6 +694,54 @@ class Trainer:
         metrics["grad_norms_per_chunk"] = torch.sqrt(sq_norms)
         return metrics
 
+    # -- one closure-optimizer step --------------------------------------------
+    def load_params(self, values) -> None:
+        """Copy ``values`` (a list in ``self.params`` order) into the params."""
+        with torch.no_grad():
+            for p, v in zip(self.params, values):
+                if p is not v:
+                    p.copy_(v)
+
+    def driver_state(self, state: TrainState) -> DriverState:
+        """The closure drivers' view of ``state``: copies of the params and
+        the SGD momentum buffers (None before the first update)."""
+        opt_state = state.optimizer.state if state.optimizer is not None else {}
+        bufs = [opt_state.get(p, {}).get("momentum_buffer") for p in self.params]
+        return DriverState(state.step, [p.detach().clone() for p in self.params],
+                           None if any(b is None for b in bufs) else bufs)
+
+    def commit(self, state: TrainState, new: DriverState) -> None:
+        """Write a driver's result into the model, the SGD state and the step."""
+        self.load_params(new.params)
+        if new.momentum is not None and float(self.cfg.hyp.optim.get("momentum", 0) or 0):
+            for p, b in zip(self.params, new.momentum):
+                state.optimizer.state[p]["momentum_buffer"] = b
+        state.step = new.step
+
+    def closure_step(self, state: TrainState, driver, images, labels):
+        """One full-batch step of a closure ``driver``: as many full passes
+        as its search takes, each at the params it asks for."""
+        state.model.train()
+        new, metrics = driver.step(self.driver_state(state), images, labels)
+        self.commit(state, new)
+        return metrics
+
+    def stochastic_closure_step(self, state: TrainState, step_fn, images, labels):
+        """One stochastic epoch of a closure optimizer: ``step_fn``
+        (:func:`~.opt.closures.make_stochastic_closure_step`) runs the driver
+        once per block of the staged rows, each block augmented once."""
+        gen = self.generator(state.step)
+        state.model.train()
+
+        def blocks():
+            for _, seg_images, seg_labels in self.segments(images, labels):
+                for b in range(len(seg_images) // self.chunks):
+                    yield self.block(seg_images, seg_labels, b, gen)
+
+        new, metrics = step_fn(self.driver_state(state), blocks())
+        self.commit(state, new)
+        return metrics
+
     # -- evaluation ------------------------------------------------------------
     @torch.no_grad()
     def eval_step(self, model, images, labels, weights):
@@ -712,11 +779,42 @@ class Trainer:
         return torch.stack([(losses * w).sum(), correct.sum(), w.sum()]).to(self.stat_dtype)
 
 
+class ClosureEvals:
+    """The closure drivers' evaluation hook over a :class:`Trainer`
+    (``fns`` of :mod:`.opt.closures`): ``gradient_eval`` is the modified
+    full-batch gradient at ``state.params``, which it loads into the model;
+    ``block_gradient_eval`` one block's gradient at them (the block's inputs
+    prepared once by the caller), with the loss and accuracy summed and the
+    running stats averaged over the ranks."""
+
+    def __init__(self, trainer: Trainer):
+        self.trainer = trainer
+        self.schedule = trainer.schedule
+        self.param_paths = jax_param_paths(trainer.model)
+        self.world = trainer.world
+        self.device = trainer.device
+
+    def gradient_eval(self, state, images, labels):
+        t = self.trainer
+        t.load_params(state.params)
+        grads, metrics, _ = t.gradient_eval(TrainState(state.step, t.model, None), images, labels)
+        return grads, metrics
+
+    def block_gradient_eval(self, state, x, labels):
+        t = self.trainer
+        params = [p.detach().requires_grad_() for p in state.params]
+        grads, loss, correct, _ = t.block_grads(params, x, labels, t.schedule(state.step),
+                                                reduce_stats=True)
+        ranks = t.world.size
+        return grads, {"train_loss": loss / ranks,
+                       "train_acc": correct / (t.chunks * t.sub * ranks)}
+
+
 def _to_host(metrics: dict) -> dict:
     """One device-to-host transfer for every metric of a step."""
     tensors = [v.reshape(-1).to(torch.float64) for v in metrics.values()
                if isinstance(v, torch.Tensor)]
-    host = iter(torch.cat(tensors).tolist())
+    host = iter(torch.cat(tensors).tolist() if tensors else [])
     out = {}
     for k, v in metrics.items():
         if isinstance(v, torch.Tensor):
@@ -753,7 +851,12 @@ def train(model: nn.Module, bundle: DataBundle, cfg, device="cuda", stats=None,
     check_slice(cfg)
     configure_backends(cfg)
     trainer = Trainer(model, bundle, cfg, device, world)
-    state = TrainState(step=0, model=model, optimizer=make_optimizer(model, cfg.hyp),
+    optimizer, info = optim_interface(model, cfg.hyp)
+    # one driver object for the run: its scratch spans full-batch and
+    # stochastic steps, mode switches and resume
+    driver = (make_closure_step(ClosureEvals(trainer), cfg, info["closure"])
+              if info["closure"] is not None else None)
+    state = TrainState(step=0, model=model, optimizer=optimizer,
                        ema_model=copy.deepcopy(model) if cfg.hyp.evaluate_ema else None)
     file = writer = None
     if cfg.impl.checkpoint.name is not None:
@@ -762,10 +865,10 @@ def train(model: nn.Module, bundle: DataBundle, cfg, device="cuda", stats=None,
             writer = CheckpointWriter(file, bool(cfg.impl.checkpoint.get("async_save", False)))
         # rank 0 writes only after its first step's collectives, which every
         # rank enters after this load
-        load_checkpoint(state, file, cfg.hyp.steps)
+        load_checkpoint(state, file, cfg.hyp.steps, driver)
     try:
         result = _train_loop(trainer, state, bundle, cfg, writer,
-                             stats if stats is not None else defaultdict(list))
+                             stats if stats is not None else defaultdict(list), driver)
     finally:
         if writer is not None:
             writer.close()
@@ -774,8 +877,10 @@ def train(model: nn.Module, bundle: DataBundle, cfg, device="cuda", stats=None,
     return result
 
 
-def _train_loop(trainer: Trainer, state: TrainState, bundle: DataBundle, cfg, writer, stats):
+def _train_loop(trainer: Trainer, state: TrainState, bundle: DataBundle, cfg, writer, stats,
+                driver=None):
     hyp = cfg.hyp
+    stochastic_closure = make_stochastic_closure_step(driver) if driver is not None else None
     val_data = stage_validation(bundle, bundle.batch_size, trainer.device, dryrun=cfg.dryrun,
                                 world=trainer.world, cfg_impl=cfg.impl)
     while state.step < hyp.steps:
@@ -786,8 +891,16 @@ def _train_loop(trainer: Trainer, state: TrainState, bundle: DataBundle, cfg, wr
         if hyp.train_switch_stochastic is not None and state.step >= hyp.train_switch_stochastic:
             stochastic = not hyp.train_stochastic
         images, labels = trainer.stage(state.step)
-        if stochastic:
+        if stochastic and (driver is None or trainer.sam_rho is not None):
+            # SAM's stochastic epoch stays the fused one, as in the JAX package
             metrics = trainer.stochastic_step(state, images, labels)
+        elif driver is not None:
+            if stochastic:
+                metrics = trainer.stochastic_closure_step(state, stochastic_closure, images,
+                                                          labels)
+            else:
+                metrics = trainer.closure_step(state, driver, images, labels)
+            trainer.ema_update(state)
         elif trainer.sam_rho is not None:
             metrics = trainer.sam_step(state, images, labels)
         else:
@@ -823,9 +936,12 @@ def _train_loop(trainer: Trainer, state: TrainState, bundle: DataBundle, cfg, wr
                 stats["valid_loss"] += [vm["valid_loss"]]
                 stats["valid_acc"] += [vm["valid_acc"]]
                 break
-        if writer is not None and ((step - 1) % cfg.impl.checkpoint.save_every_nth_step == 0
-                                   or step >= hyp.steps):
-            writer.save(state)
+        if cfg.impl.checkpoint.name is not None and (
+                (step - 1) % cfg.impl.checkpoint.save_every_nth_step == 0 or step >= hyp.steps):
+            # every rank: a sharded driver's state is gathered (a collective)
+            driver_state = driver.get_state() if driver is not None else None
+            if writer is not None:
+                writer.save(state, driver_state)
         if cfg.dryrun:
             break
     return state, stats

@@ -4,12 +4,16 @@ A checkpoint is ``<original_cwd>/checkpoints/<impl.checkpoint.name>``, the
 JAX package's place, so a resumed job with the same name finds it. It holds
 ``torch.save`` of
 
-    {"step": int, "model": state_dict, "optimizer": state_dict,
-     "ema_model": state_dict or None}
+    {"step": int, "model": state_dict, "optimizer": state_dict or None,
+     "ema_model": state_dict or None[, "driver": driver state]}
 
 with every tensor on the CPU, and loads with ``torch.load(weights_only=True)``
 (no pickled code). The lr schedule is a function of the step, so it needs no
-state. Writes are atomic: a temporary file, then a rename.
+state. A closure optimizer's driver (line-search loss windows, FISTA's lr,
+``t_k`` and ``x_prev``, L-BFGS's curvature memory) rides in the same file
+under ``"driver"``, so it is on disk exactly when the checkpoint it belongs
+to is, async writes included, and is restored when a run resumes. Writes are
+atomic: a temporary file, then a rename.
 
 ``impl.checkpoint.async_save`` moves the copy to the host and the write to one
 writer thread, one write in flight. ``torch.optim`` and BatchNorm update
@@ -46,12 +50,15 @@ def _tree_map(fn, tree):
     return tree
 
 
-def state_payload(state) -> dict:
-    """The checkpoint's dict of ``state`` (a ``TrainState``); its tensors are
-    the state's own, not copies."""
-    return {"step": int(state.step), "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
-            "ema_model": None if state.ema_model is None else state.ema_model.state_dict()}
+def state_payload(state, driver_state=None) -> dict:
+    """The checkpoint's dict of ``state`` (a ``TrainState``) and a closure
+    driver's ``get_state()``; its tensors are the state's own, not copies."""
+    payload = {"step": int(state.step), "model": state.model.state_dict(),
+               "optimizer": None if state.optimizer is None else state.optimizer.state_dict(),
+               "ema_model": None if state.ema_model is None else state.ema_model.state_dict()}
+    if driver_state is not None:
+        payload["driver"] = driver_state
+    return payload
 
 
 def write_checkpoint(payload: dict, file: Path) -> None:
@@ -74,10 +81,10 @@ class CheckpointWriter:
         self._pool: ThreadPoolExecutor | None = None
         self._pending: Future | None = None
 
-    def save(self, state) -> Path:
+    def save(self, state, driver_state=None) -> Path:
         # the older write lands first and never shares the temporary file
         self.wait()
-        payload = state_payload(state)
+        payload = state_payload(state, driver_state)
         if not self.async_save:
             write_checkpoint(payload, self.file)
             return self.file
@@ -101,10 +108,11 @@ class CheckpointWriter:
                 self._pool = None
 
 
-def load_checkpoint(state, file: Path, max_steps: int) -> int:
-    """Fill ``state`` (model, optimizer, EMA model) from ``file`` and return
-    its step: 0, and ``state`` untouched, where there is no file. Raises
-    ``ValueError`` when the checkpoint has reached ``max_steps``."""
+def load_checkpoint(state, file: Path, max_steps: int, driver=None) -> int:
+    """Fill ``state`` (model, optimizer, EMA model) and ``driver`` (a closure
+    optimizer's) from ``file`` and return its step: 0, and ``state``
+    untouched, where there is no file. Raises ``ValueError`` when the
+    checkpoint has reached ``max_steps``."""
     file = Path(file)
     if not file.exists():
         log.info("No existing checkpoint found. Starting to train from step 0.")
@@ -114,9 +122,13 @@ def load_checkpoint(state, file: Path, max_steps: int) -> int:
     if step >= max_steps:
         raise ValueError("Maximum step size reached. Terminating computations.")
     state.model.load_state_dict(payload["model"])
-    state.optimizer.load_state_dict(payload["optimizer"])
+    if state.optimizer is not None:
+        state.optimizer.load_state_dict(payload["optimizer"])
     if state.ema_model is not None:
         state.ema_model.load_state_dict(payload["ema_model"])
+    if driver is not None and step > 0 and payload.get("driver") is not None:
+        driver.set_state(payload["driver"])
+        log.info("Closure-optimizer driver state restored from %s.", file.name)
     state.step = step
     log.info("Existing checkpoint loaded successfully. Continuing from step %d.", step)
     return step

@@ -35,6 +35,8 @@ from fullbatchtraining_tpu_torch.models import construct_model
 from fullbatchtraining_tpu_torch.training import train
 from fullbatchtraining_tpu_torch.training.utils import CheckpointWriter
 
+from test_torch_training_stochastic import one_thread  # noqa: F401  (autouse)
+
 RTOL = 1e-8
 
 BASE = [
@@ -181,3 +183,41 @@ def test_async_save_matches_sync(config_dir, tmp_path, monkeypatch):
     momentum = export_jax_sgd_state(final.model, final.optimizer)
     assert int(momentum["count"]) == 1
     assert export_jax_variables(final.model)["params"].keys() == momentum["momentum"].keys()
+
+
+ZOO = {
+    # full-batch L-BFGS: its curvature memory rides in the checkpoint's "driver"
+    "lbfgs": ["hyp.train_stochastic=False", "hyp/optim=lbfgs"],
+    # stochastic AdamW: exp_avg, exp_avg_sq and step in the optimizer's state
+    "adamw": ["hyp/optim=adam"],
+}
+
+
+@pytest.mark.parametrize("case", list(ZOO))
+def test_zoo_resume_is_bitwise_equal(case, config_dir, tmp_path, monkeypatch):
+    """An L-BFGS run and an AdamW run resumed from a checkpoint equal the
+    straight runs bitwise: params, running stats, EMA, optimizer state and
+    the closure driver's state, and the stats of the steps after the resume."""
+    monkeypatch.chdir(tmp_path)
+    variables = _jax_variables(config_dir)[2]
+    _, _, stats_straight = _port_run(config_dir, tmp_path, variables, 3, name="straight.ckpt",
+                                     extra=ZOO[case])
+    _port_run(config_dir, tmp_path, variables, 1, name="resume.ckpt", extra=ZOO[case])
+    _, _, stats_resumed = _port_run(config_dir, tmp_path, variables, 3, name="resume.ckpt",
+                                    extra=ZOO[case])
+    straight, resumed = (torch.load(tmp_path / "checkpoints" / f"{name}.ckpt", weights_only=True)
+                         for name in ("straight", "resume"))
+    assert straight["step"] == resumed["step"] == 3
+    _assert_payloads_equal(resumed, straight)
+    if case == "lbfgs":
+        assert straight["optimizer"] is None and len(straight["driver"]["s_hist"]) == 2
+        scalars = {k: v for k, v in straight["driver"].items() if not isinstance(v, (list,
+                                                                                   torch.Tensor))}
+        assert scalars == {k: resumed["driver"][k] for k in scalars}
+        assert scalars["n_iter"] == 3
+    else:
+        assert "driver" not in straight
+        assert {float(s["step"]) for s in straight["optimizer"]["state"].values()} == {12.0}
+    for key, values in stats_resumed.items():
+        if key != "train_time":
+            assert values == stats_straight[key][1:], key

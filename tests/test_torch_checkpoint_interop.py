@@ -21,6 +21,7 @@ from fullbatchtraining_tpu_torch.training import TrainState, make_optimizer, tra
 from fullbatchtraining_tpu_torch.training.utils import CheckpointWriter
 from test_torch_checkpoint import (BASE, _assert_states_match_jax, _assert_stats_close,
                                    _jax_run, _jax_variables, _port_run)
+from test_torch_training_stochastic import one_thread  # noqa: F401  (autouse)
 
 
 def test_jax_checkpoint_resumes_in_the_port(config_dir, tmp_path, monkeypatch):

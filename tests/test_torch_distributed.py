@@ -312,6 +312,79 @@ def test_collectives_a_step(probe):
 
 
 # ---------------------------------------------------------------------------
+# L-BFGS's flat vectors sharded over the ranks (impl.shard_opt_vectors)
+# ---------------------------------------------------------------------------
+
+LBFGS_RUN = """
+import sys
+import torch
+from fullbatchtraining_tpu_torch import parallel
+from fullbatchtraining_tpu_torch.__main__ import CONFIG_DIR
+from fullbatchtraining_tpu_torch.config import load_config
+from fullbatchtraining_tpu_torch.data import construct_databundle
+from fullbatchtraining_tpu_torch.models import construct_model
+from fullbatchtraining_tpu_torch.training import training
+
+out, overrides = sys.argv[1], sys.argv[2:]
+cfg = load_config(CONFIG_DIR, overrides=overrides)
+world = parallel.setup_distributed(cfg.impl.setup, "cpu")
+drivers = []
+make = training.make_closure_step
+training.make_closure_step = lambda *args: drivers.append(make(*args)) or drivers[-1]
+bundle = construct_databundle(cfg.data, cfg.impl, cfg.hyp, seed=cfg.seed, device="cpu")
+model = construct_model(cfg.model, bundle.channels, bundle.classes, seed=cfg.seed)
+state, stats = training.train(model, bundle, cfg, device="cpu", world=world)
+driver = drivers[0]
+held = [driver.prev_flat_grad, driver.Bs, driver.d, *driver.s_hist, *driver.y_hist]
+torch.save({"params": [p.detach() for p in model.parameters()], "state": driver.get_state(),
+            "held": [v.numel() for v in held], "stats": dict(stats)}, f"{out}.rank{world.rank}")
+parallel.shutdown(world)
+"""
+# width 3: 25,297 params, an odd count, so the shards carry one element of padding
+LBFGS_SHARDED = ["model=resnet18", "model.width=3", "data.path=/tmp/__torch_nodata__", *FP64,
+                 *FB, "hyp=fb1", "hyp/optim=lbfgs", "hyp.steps=3", "hyp.warmup=0", "seed=0",
+                 "impl/setup=distributed", "impl.setup.world_size=2"]
+
+
+def test_sharded_lbfgs_vectors_equal_the_unsharded_run(tmp_path):
+    """Two gloo ranks of L-BFGS with ``impl.shard_opt_vectors=True`` against
+    two without: params, stats and the driver state agree to rtol 1e-10 (the
+    dots reduce in another order); each rank holds ``ceil(n / 2)`` elements
+    of every flat vector, and ``get_state()`` carries the ``n`` unpadded."""
+    runs = {}
+    for sharded in (False, True):
+        port = free_port()
+        prefix = tmp_path / f"sharded{int(sharded)}"
+        spawn_ranks(lambda r: [
+            sys.executable, "-c", LBFGS_RUN, str(prefix), *LBFGS_SHARDED,
+            f"impl.shard_opt_vectors={sharded}", f"impl.setup.url=127.0.0.1:{port}",
+            f"impl.setup.rank={r}"], tmp_path)
+        runs[sharded] = [torch.load(f"{prefix}.rank{r}", weights_only=True) for r in range(2)]
+    n = sum(p.numel() for p in runs[False][0]["params"])
+    assert n % 2 == 1
+    for rank in range(2):
+        plain, sharded = runs[False][rank], runs[True][rank]
+        assert set(plain["held"]) == {n}
+        assert set(sharded["held"]) == {(n + 1) // 2}
+        for a, b in zip(sharded["params"], plain["params"], strict=True):
+            np.testing.assert_allclose(a, b, rtol=1e-10, atol=1e-14)
+        assert sharded["stats"].keys() == plain["stats"].keys()
+        for key in plain["stats"]:
+            if key != "train_time":
+                np.testing.assert_allclose(sharded["stats"][key], plain["stats"][key],
+                                           rtol=1e-10, err_msg=key)
+        ours, ref = sharded["state"], plain["state"]
+        assert len(ref["s_hist"]) == 2 and ours.keys() == ref.keys()
+        for key in ref:
+            a, b = ours[key], ref[key]
+            for x, y in zip(a if isinstance(a, list) else [a], b if isinstance(b, list) else [b],
+                            strict=True):
+                if isinstance(y, torch.Tensor):
+                    assert x.shape == y.shape == (n,), key
+                np.testing.assert_allclose(x, y, rtol=1e-10, atol=1e-14, err_msg=key)
+
+
+# ---------------------------------------------------------------------------
 # rank 0's duties: the seed, checkpoints, the bake
 # ---------------------------------------------------------------------------
 

@@ -35,6 +35,8 @@ from fullbatchtraining_tpu_torch.models import construct_model
 from fullbatchtraining_tpu_torch.training import grad_reg
 from fullbatchtraining_tpu_torch.training.training import Trainer
 
+from test_torch_training_stochastic import one_thread  # noqa: F401  (autouse)
+
 RTOL = 1e-9
 LR = 0.8
 OVERRIDES = ["model=resnet18", "model.width=4", "hyp=gradreg", "data.size=8",

@@ -30,7 +30,10 @@ def test_importing_every_module_loads_no_jax():
     assert {"fullbatchtraining_tpu_torch.data.baked",
             "fullbatchtraining_tpu_torch.data.policy_augment",
             "fullbatchtraining_tpu_torch.parallel",
-            "fullbatchtraining_tpu_torch.parallel.streaming"} <= set(_modules())
+            "fullbatchtraining_tpu_torch.parallel.streaming",
+            *(f"fullbatchtraining_tpu_torch.training.opt.{name}" for name in (
+                "adaptive_clipping", "agc", "closures", "fista", "lars", "lbfgs"))
+            } <= set(_modules())
     script = f"""
 import importlib, sys
 for name in {_modules()!r}:
@@ -107,25 +110,26 @@ def test_cli_dryrun_default_recipe(tmp_path):
 
 
 BOUNDARIES = {
-    "lars": ["hyp/optim_modification=LARS"],
-    "larc": ["hyp/optim_modification=LARC"],
-    "fista": ["hyp/optim=fista"],
-    "gd-agc": ["hyp/optim=gd_agc"],
     "analysis": ["analysis=full"],
     "trace": ["impl.trace=True"],
     "float16-compute": ["impl.compute_dtype=float16"],
     "float16-params": ["impl.dtype=float16"],
-    "adam": ["hyp/optim=adam"],
     "vgg": ["model=vgg11"],
     "densenet": ["model=densenet121"],
     "groupnorm": ["model.normalization=GroupNorm"],
-    "gd-clip": ["hyp/optim=gd_clip"],
-    "lbfgs": ["hyp/optim=lbfgs"],
     "pyramidnet": ["model=pyramidnet110"],
     "nfnet": ["model=nfn"],
 }
-# modes that raised until the streamed epochs and other datasets came in
+# modes that raised until the streamed epochs, other datasets and the
+# optimizer zoo came in
 FORMER_BOUNDARIES = {
+    "lars": ["hyp/optim_modification=LARS"],
+    "larc": ["hyp/optim_modification=LARC"],
+    "fista": ["hyp/optim=fista"],
+    "gd-agc": ["hyp/optim=gd_agc"],
+    "adam": ["hyp/optim=adam"],
+    "gd-clip": ["hyp/optim=gd_clip"],
+    "lbfgs": ["hyp/optim=lbfgs"],
     # the shuffled epoch above the device gather's limit: gathered on the host
     "shuffle-over-budget": ["hyp.shuffle=True", "impl.device_shuffle_max_bytes=1"],
     "random-resized-crop": ["+data.augmentations_train.RandomResizedCrop=32"],

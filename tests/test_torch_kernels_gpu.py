@@ -329,7 +329,7 @@ def test_nccl_group_of_one_step_is_bitwise_the_step_without(cuda):
             parallel.shutdown(world)
     (ours, ours_stats, ours_launches, calls, size), (ref, ref_stats, ref_launches, none, _) = runs
     assert size == 1
-    assert calls == {"all_reduce": 2, "broadcast": 0, "barrier": 0}
+    assert calls == {"all_reduce": 2, "all_gather": 0, "broadcast": 0, "barrier": 0}
     assert none == dict.fromkeys(calls, 0)
     assert ours_launches == ref_launches and ref_launches["stats"] == 20 * 4
     assert [k for k in ref if not torch.equal(ours[k], ref[k])] == []

@@ -1,6 +1,8 @@
 """The port's schedules and SGD against the JAX package's
 ``make_lr_schedule`` and ``torch_sgd``, in float64 (rtol 1e-12: the same
-formulas, rounded once per op on both sides)."""
+formulas, rounded once per op on both sides), and the optimizer interface's
+refusals of unknown choices (the rest of the zoo:
+``tests/test_torch_optim_zoo.py``)."""
 
 import jax
 import jax.numpy as jnp
@@ -78,7 +80,16 @@ def test_sgd_matches_torch_sgd(overrides, only_linear, config_dir):
                                    err_msg=name)
 
 
-def test_other_optimizers_raise(config_dir):
-    cfg = load_config(config_dir, overrides=["hyp=fb1", "hyp/optim=adam"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+@pytest.mark.parametrize("overrides,message", [
+    (["hyp/optim=adam", "hyp.optim.name=Adamax"], "Invalid optimizer Adamax provided."),
+    (["hyp.optim.line_search=armijo"], "Invalid linesearch armijo defined."),
+    (["hyp.scheduler=triangle"], "Invalid scheduler triangle provided."),
+], ids=["optimizer", "line-search", "scheduler"])
+def test_other_optimizers_raise(overrides, message, config_dir):
+    """An unknown optimizer, line search or scheduler raises ValueError with
+    the JAX package's message, in both packages."""
+    cfg = load_config(config_dir, overrides=["hyp=fb1"] + overrides)
+    with pytest.raises(ValueError, match=message):
+        joptim.optim_interface(None, cfg.hyp)
+    with pytest.raises(ValueError, match=message):
         optimizers.make_optimizer(_Params({"w": np.zeros(2)}), cfg.hyp)

@@ -36,6 +36,8 @@ from fullbatchtraining_tpu_torch.data import construct_databundle
 from fullbatchtraining_tpu_torch.models import construct_model
 from fullbatchtraining_tpu_torch.training import train
 
+from test_torch_training_stochastic import one_thread  # noqa: F401  (autouse)
+
 RTOL = 1e-8
 
 BASE = [

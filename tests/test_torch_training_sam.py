@@ -5,6 +5,7 @@ sets up the comparison)."""
 import pytest
 
 from test_torch_training_stochastic import check_stochastic_case
+from test_torch_training_stochastic import one_thread  # noqa: F401  (autouse)
 
 CASES = {
     "sam-stochastic": ["hyp=base_sgd", "hyp/optim_modification=SAM"],

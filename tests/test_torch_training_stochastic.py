@@ -38,6 +38,18 @@ from fullbatchtraining_tpu_torch.training import train
 
 RTOL = 1e-8
 
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: the port's side of a parity test is many tiny
+    torch ops, which several test workers with a thread per core each slow
+    down some tenfold. The files that share this module's setup import the
+    fixture too."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 BASE = [
     "model=resnet18", "model.width=4", "data.size=32",
     "data.path=/tmp/__torch_nodata__", "data.batch_size=8", "hyp.sub_batch=4",
@@ -67,7 +79,8 @@ def _assert_trees_close(ours, ref, path=""):
 
 
 def check_stochastic_case(extra, config_dir, monkeypatch):
-    """Train ``BASE + extra`` in both packages and compare the results."""
+    """Train ``BASE + extra`` in both packages, compare the results and return
+    the port's stats."""
     overrides = BASE + list(extra)
     with jax.enable_x64(True):
         cfg = jax_load_config(config_dir, overrides=overrides)
@@ -108,6 +121,7 @@ def check_stochastic_case(extra, config_dir, monkeypatch):
     for key in sorted(keys):
         np.testing.assert_allclose(stats[key], ref_stats[key], rtol=RTOL, atol=1e-12,
                                    err_msg=key)
+    return stats
 
 
 @pytest.mark.parametrize("case", list(CASES))

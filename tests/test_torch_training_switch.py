@@ -5,6 +5,7 @@ port's ``train()`` against the JAX package's
 import pytest
 
 from test_torch_training_stochastic import check_stochastic_case
+from test_torch_training_stochastic import one_thread  # noqa: F401  (autouse)
 
 CASES = {
     # step 0 stochastic, steps 1 and 2 full-batch
