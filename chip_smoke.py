@@ -114,6 +114,29 @@ Phases, in order; any failure exits non-zero before the result lines:
    state. (c) One step each of ``hyp.optim.line_search=wolfe``,
    ``hyp/optim=adam hyp/optim_modification=LARC``, ``hyp/optim=gd_agc`` and
    ``hyp/optim=gd_clip``: evaluations, step time, loss, exact launches.
+13. The other model families and norms at full width, data cut. (a)
+   ``train_distributed_multinode.sh:15-16``, ``hyp=gradreg
+   model=densenet121`` in an NCCL group of one, as 10c: float32, 20 chunks
+   of 128, one step; launches exactly 2 passes x 120 BatchNorms x 20, no
+   channels-last copy, step time and peak memory. (b) The same over 4
+   chunks with ``model.memory_efficient=True`` against the plain model:
+   loss, gradient, params and running stats equal (bitwise expected, else
+   within 1e-6 relative), peak memory lower. (c) Phase 3's check on VGG11,
+   PyramidNet-110 (mostly one-element launches), DenseNet-121 at 4 chunks
+   of 128 and ResNet-18 under ``SequentialGhostNorm``, where a tensor that
+   rounding alone moves (a conv bias under a BatchNorm, a cancelling sum,
+   the zero batch mean of a BatchNorm fed by another) is held to 10x a
+   plain run's from weights off by 2^-20. (d) Two bf16
+   ``hyp=fb1`` steps each of ``vgg16``,
+   ``pyramidnet110``, ``pyramidnet272``, ``nfn`` and ResNet-18 under
+   ``SequentialGhostNorm``, ``GroupNorm`` and ``SkipInit``, 16 chunks of
+   128: step times, launches exactly the model's (none for NFNet, GroupNorm
+   and SkipInit), at 16 bytes and at one element, no channels-last copy,
+   peak memory. (e) Phase 2's check at PyramidNet-110's odd first-stage
+   widths (C = 19, 21; 128 and 2048 images) and DenseNet-121's widest norm
+   (C = 1024, 4x4, 128 images). (f) One warm bf16 ``hyp=fb1`` chunk of
+   128 of PyramidNet-110 under ``torch.profiler``: device time by kernel
+   class against the wall time.
 
 The last lines are the card line, a JSON object of per-kernel numbers (their
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` sum the 20 BN layers of
@@ -122,7 +145,8 @@ layer alone; ``launches`` counts phase 4, ``launches_gradreg`` phase 7,
 ``launches_sgd`` phase 8c, ``launches_fb_shuffle`` phase 8d,
 ``launches_baked`` phase 9b, ``launches_dist`` phase 10a,
 ``launches_tinyimagenet`` 11a, ``launches_streamed`` 11b,
-``launches_imagenet`` 11c and ``launches_zoo`` 12a), and ``{"ok": true,
+``launches_imagenet`` 11c, ``launches_zoo`` 12a and ``launches_families``
+13a-13d; ``family_shapes`` holds 13e's rows), and ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -230,7 +254,8 @@ def access_bytes(bn, name, before, itemsize) -> int:
 
 def phase_kernels(torch, bn, chunk=CHUNK, stages=STAGES):
     """Every kernel against its plain version at the BN shapes ``stages``
-    (``(H*W, C)``) of a chunk of ``chunk`` images, with its times."""
+    (``(H*W, C)``) of a chunk of ``chunk`` images, with its times; 16 bytes
+    a thread where ``C`` allows it, else one element."""
     import torch.nn.functional as F
 
     rows = []
@@ -286,7 +311,9 @@ def phase_kernels(torch, bn, chunk=CHUNK, stages=STAGES):
                     f"library {row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms")
                 check(rel <= tol,
                       f"{name} {dtype_name} M={m} C={c} disagrees with its plain version")
-                check(width == 16, f"{name} {dtype_name} C={c} took {width}-byte accesses")
+                # 16 bytes a thread where C is a multiple of 16 bytes' elements
+                expect = 16 if c % (16 // x.element_size()) == 0 else x.element_size()
+                check(width == expect, f"{name} {dtype_name} C={c} took {width}-byte accesses")
                 row.update(narrow_run(torch, bn, name, narrow[name], plain[name], scale[name],
                                       dtype_name, x.element_size()))
             rows.append(phase_bn_train(torch, bn, F, x, dy, dtype_name, hw, c, chunk))
@@ -408,9 +435,10 @@ def main_path_config(extra, hyp="fb1"):
         f"data.path={ROOT / 'build' / 'no_cifar_here'}", "name=chip_smoke"] + list(extra))
 
 
-def run_main_path(torch, extra, hyp="fb1", bundle=None):
+def run_main_path(torch, extra, hyp="fb1", bundle=None, perturb=0.0):
     """``training.train`` of ``main_path_config(extra, hyp)`` from its seeded
-    weights, on ``bundle`` where given (a bundle depends on ``data.*`` only)."""
+    weights (each multiplied by ``1 +- perturb``), on ``bundle`` where given
+    (a bundle depends on ``data.*`` only)."""
     from fullbatchtraining_tpu_torch.data import construct_databundle
     from fullbatchtraining_tpu_torch.models import construct_model
     from fullbatchtraining_tpu_torch.training import train
@@ -419,7 +447,13 @@ def run_main_path(torch, extra, hyp="fb1", bundle=None):
     if bundle is None:
         bundle = construct_databundle(cfg.data, cfg.impl, cfg.hyp, dryrun=cfg.dryrun,
                                       seed=cfg.seed, device=DEVICE)
-    model = construct_model(cfg.model, bundle.channels, bundle.classes, seed=cfg.seed)
+    model = construct_model(cfg.model, bundle.channels, bundle.classes, seed=cfg.seed,
+                            pixels=bundle.pixels)
+    if perturb:
+        g = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_(1 + perturb * torch.randn(p.shape, generator=g).sign())
     initial = copy.deepcopy(model.state_dict())
     torch.cuda.reset_peak_memory_stats()
     state, stats = train(model, bundle, cfg, device=DEVICE)
@@ -427,6 +461,7 @@ def run_main_path(torch, extra, hyp="fb1", bundle=None):
     return cfg, bundle, initial, state, stats
 
 
+STAT_TOL = 1e-4   # running stats, kernels against plain, relative L2
 FP32_STEP = ["hyp.warmup=0", "hyp.steps=1", "data.size=8192", "data.batch_size=512",
              "hyp.sub_batch=512", "impl.mixed_precision=False"]
 FULL_WIDTH = ["hyp.warmup=0", "hyp.steps=3", "data.size=50_000", "data.batch_size=2048",
@@ -441,12 +476,13 @@ STEP_TOLS = {"fb1": (("train_loss", 1e-5), ("grad_norm", 1e-4), ("full_loss", 1e
                          ("valid_loss", 1e-4))}
 
 
-def kernels_against_plain_step(torch, bn, hyp="fb1", extra=()):
+def kernels_against_plain_step(torch, bn, hyp="fb1", extra=(), control=False):
     """One float32 step (``FP32_STEP``) on the kernels and under
     ``plain_versions()``: the stats of ``STEP_TOLS[hyp]``, the updated
     params (within 1e-3 of the update, times the amplification of a finite
-    difference where the regularizer takes one) and the running stats
-    (1e-4) must agree.
+    difference where the regularizer takes one; with ``control``, a tensor
+    beyond that may instead stay within :func:`against_control`'s bound)
+    and the running stats (1e-4) must agree.
     Returns the kernel run's launch counts, its double backwards and the
     chunks of the step."""
     from fullbatchtraining_tpu_torch.data import epoch_layout
@@ -484,10 +520,51 @@ def kernels_against_plain_step(torch, bn, hyp="fb1", extra=()):
                           * kstats["grad_norm"][0] / float(reg.eps))
     log(f"  params: max over tensors of |kernels - plain| / |update| = {worst_param:.2e} "
         f"(tol {param_tol:.2e}); running stats: max relative L2 diff = {worst_stat:.2e} "
-        f"(tol 1e-4)")
+        f"(tol {STAT_TOL:g})")
+    if control and (worst_param > param_tol or worst_stat > STAT_TOL):
+        worst_param, worst_stat = against_control(torch, bn, hyp, extra, initial, ks, ps,
+                                                  param_tol)
     check(worst_param <= param_tol, "updated params differ between kernels and plain versions")
-    check(worst_stat <= 1e-4, "running stats differ between kernels and plain versions")
+    check(worst_stat <= STAT_TOL, "running stats differ between kernels and plain versions")
     return counts, doubles, blocks * chunks
+
+
+def against_control(torch, bn, hyp, extra, initial, ks, ps, param_tol):
+    """A plain run from weights off by ``CONTROL_EPS`` (relative) shows how
+    far rounding alone moves each tensor: a conv bias that a BatchNorm
+    follows has no gradient, a sum that cancels loses its leading digits,
+    and a BatchNorm fed by another one (PyramidNet's stem, then its first
+    block) has a batch mean of zero. A tensor's kernels-vs-plain difference
+    may exceed its tolerance (a param's over its update, ``param_tol``; a
+    running stat's over itself, ``STAT_TOL``) only up to ``CONTROL_FACTOR``
+    times the control's difference of the same. Returns the largest ratio
+    of a tensor's difference to its bound, times its tolerance, for the
+    params and the running stats."""
+    with bn.plain_versions():
+        _, _, c0, cstate, _ = run_main_path(torch, FP32_STEP + list(extra), hyp,
+                                            perturb=CONTROL_EPS)
+    cs = cstate.model.state_dict()
+    worst = {"params": (-1.0, None), "running stats": (-1.0, None)}
+    for name, p0 in initial.items():
+        p, k, c = (t[name].double().cpu() for t in (ps, ks, cs))
+        if name.endswith(("running_mean", "running_var")):
+            kind, tol, own, control = ("running stats", STAT_TOL, p.norm().item(),
+                                       (c - p).norm().item())
+        else:
+            update = p - p0.double()
+            kind, tol, own = "params", param_tol, update.norm().item()
+            control = ((c - c0[name].double().cpu()) - update).norm().item()
+        gap = (k - p).norm().item()
+        ratio = gap / max(tol * own, CONTROL_FACTOR * control, 1e-30)
+        if ratio > worst[kind][0]:
+            worst[kind] = (ratio, (name, gap, own, control, tol))
+    for kind, (ratio, (name, gap, own, control, tol)) in worst.items():
+        measure = "update" if kind == "params" else "norm"
+        log(f"  control (plain from weights off by {CONTROL_EPS:.1e}), the tightest of the "
+            f"{kind}: {name}: |kernels - plain| {gap:.2e}, its {measure} {own:.2e}, the "
+            f"control moved it {control:.2e}: {ratio:.2f} of max({tol:g} x its {measure}, "
+            f"{CONTROL_FACTOR} x control)")
+    return worst["params"][0] * param_tol, worst["running stats"][0] * STAT_TOL
 
 
 def phase_fp32_step(torch, bn, extra=()):
@@ -2036,6 +2113,217 @@ def phase_zoo_one_step(torch, bn, bundle):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the other model families and norms
+# ---------------------------------------------------------------------------
+
+# train_distributed_multinode.sh:15-16 as 10c runs :8: float32, chunks of
+# 128, one step, cut to 20 chunks
+DENSENET_MULTINODE = ["model=densenet121", "hyp.steps=1", "data.size=2560"]
+DENSENET_BNS, DENSENET_CHUNKS = 120, 20
+MEMORY_EFFICIENT_CUT = ["data.size=512"]               # 4 chunks of 128
+MEMORY_EFFICIENT_TOL = 1e-6
+# 13c: phase 3's float32 step for each; DenseNet-121 at 4 chunks of 128
+FAMILY_FP32 = {"vgg11": ["model=vgg11"],
+               "pyramidnet110": ["model=pyramidnet110"],
+               "densenet121": ["model=densenet121", "data.size=512", "data.batch_size=128",
+                               "hyp.sub_batch=128"],
+               "resnet18-ghostnorm": ["model.normalization=SequentialGhostNorm"]}
+# 13d: two bf16 hyp=fb1 steps each (the first pays each conv shape's first
+# use) at the configured chunks of 128, cut to 16 chunks (at 64, PyramidNet-110
+# and -272 took 19 and 38-50 s a step on an H100 at 700 W: the host issues
+# their many narrow layers)
+FAMILY_BF16_STEP = ["hyp.warmup=0", "hyp.steps=2", "data.size=2048",
+                    "impl.mixed_precision=True"]
+FAMILY_BF16 = {"vgg16": ["model=vgg16"], "pyramidnet110": ["model=pyramidnet110"],
+               "pyramidnet272": ["model=pyramidnet272"], "nfn": ["model=nfn"],
+               "resnet18-ghostnorm": ["model.normalization=SequentialGhostNorm"],
+               "resnet18-groupnorm": ["model.normalization=GroupNorm"],
+               "resnet18-skipinit": ["model.normalization=SkipInit"]}
+# 13e: PyramidNet-110's first-stage odd widths (its first blocks are 17, 19
+# and 21 wide) at 128 images of 32x32 (and at 2048, where the card and not
+# the host sets the time), and DenseNet-121's widest norm
+ODD_WIDTHS = [(32 * 32, 19), (32 * 32, 21)]
+DENSENET_WIDEST = [(4 * 4, 1024)]
+# 13f: one bf16 chunk of 128 of PyramidNet-110 under the profiler
+PYRAMID_PROFILE = ["model=pyramidnet110", "data.size=128"]
+
+
+def norm_calls(model, batch: int):
+    """``(calls, layers, recomputed)``: launches of each of ``stats``,
+    ``bwd_reduce`` and ``bwd_apply`` in one forward and backward of ``batch``
+    images (one a ``BatchNorm2d``, one a virtual batch of each
+    ``GhostBatchNorm``); the norms' count (an evaluation forward launches
+    ``apply`` once each); and the calls inside memory-efficient dense
+    layers, whose backward recomputes their forward (``stats`` and ``apply``
+    once more each)."""
+    from fullbatchtraining_tpu_torch.models.layers import BatchNorm2d
+    from fullbatchtraining_tpu_torch.models.modules import GhostBatchNorm
+
+    calls = layers = recomputed = 0
+    for parent in model.modules():
+        checkpointed = getattr(parent, "remat", False)
+        for module in parent.children():
+            if isinstance(module, BatchNorm2d):
+                n = 1
+            elif isinstance(module, GhostBatchNorm):
+                n = -(-batch // module.chunk_size(batch))
+            else:
+                continue
+            calls, layers, recomputed = calls + n, layers + 1, recomputed + n * checkpointed
+    top = [model] if isinstance(model, (BatchNorm2d, GhostBatchNorm)) else []
+    return calls + len(top), layers + len(top), recomputed
+
+
+def family_launches(torch, cfg, bundle, model, steps, evals, passes=1):
+    """Each kernel's launches in a run of ``steps`` steps of ``passes``
+    passes over the epoch and ``evals`` evaluations (``eval_chunks``
+    forwards a block, as the trainer resolves them)."""
+    from fullbatchtraining_tpu_torch.data import epoch_layout
+    from fullbatchtraining_tpu_torch.models.models import estimate_activation_bytes
+    from fullbatchtraining_tpu_torch.training.training import _resolve_eval_chunking
+
+    spec = cfg.impl.eval_block_chunks
+    dtype = torch.bfloat16 if cfg.impl.mixed_precision else torch.float32
+    act = (estimate_activation_bytes(model, bundle.pixels, bundle.channels, dtype)
+           if spec in ("auto", True) else None)
+    eval_chunks = _resolve_eval_chunking(spec, bundle.batch_size, act,
+                                         cfg.impl.get("activation_budget_bytes"))
+    blocks, chunks, sub = epoch_layout(bundle.size, bundle.batch_size, cfg.hyp.sub_batch)
+    calls, layers, recomputed = norm_calls(model, sub)
+    train = passes * calls * blocks * chunks * steps
+    forward = train + passes * recomputed * blocks * chunks * steps
+    eval_blocks = -(-len(bundle.valid) // bundle.batch_size)
+    return {**{k: train for k in KERNELS}, "stats": forward,
+            "apply": forward + layers * eval_blocks * eval_chunks * evals}
+
+
+def family_run(torch, bn, extra, hyp="fb1", passes=1):
+    """``training.train`` of ``extra`` with the counts set to 0 just before
+    it: step time, peak memory, launches (exactly :func:`family_launches`),
+    those at 16 bytes and at one element, channels-last copies (none)."""
+    bn.reset_counts()
+    cfg, bundle, _, state, stats = run_main_path(torch, extra, hyp)
+    counts, wide, copies = dict(bn.launches), dict(bn.vector_launches), bn.layout_copies
+    expected = family_launches(torch, cfg, bundle, state.model, len(stats["train_loss"]),
+                               len(stats["valid_loss"]), passes)
+    result = {"model": cfg.model.name, "step_s": stats["train_time"],
+              "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "train_loss": stats["train_loss"], "valid_loss": stats["valid_loss"],
+              "grad_norm": stats.get("grad_norm"), "launches": counts,
+              "expected_launches": expected, "wide_launches": wide,
+              "narrow_launches": {k: counts[k] - wide[k] for k in counts},
+              "layout_copies": copies, "norm_layers": norm_calls(state.model, 1)[1],
+              "state": state, "stats": stats}
+    log(f"  {cfg.model.name} ({', '.join(extra)}): step "
+        f"{', '.join(f'{t:.3f}' for t in stats['train_time'])} s, peak "
+        f"{result['peak_memory_gib']:.2f} GiB, train loss {stats['train_loss'][0]:.4f}, "
+        f"valid loss {stats['valid_loss'][0]:.4f}; {result['norm_layers']} norm layers; "
+        f"launches {counts} (16 B {wide}, 1 element {result['narrow_launches']}); "
+        f"layout_copies {copies}")
+    check(counts == expected, f"{cfg.model.name}: launches {counts}, expected {expected}")
+    check(copies == 0, f"{cfg.model.name}: {copies} channels-last copies")
+    check(all(map(math.isfinite, stats["train_loss"] + stats["valid_loss"])),
+          f"{cfg.model.name}: non-finite loss")
+    return result
+
+
+def strip(result):
+    return {k: v for k, v in result.items() if k not in ("state", "stats")}
+
+
+def phase_family_multinode(torch, bn):
+    """13a: ``train_distributed_multinode.sh:15-16`` (``hyp=gradreg
+    model=densenet121 impl/setup=distributed``) in an NCCL group of one, as
+    10c: float32, chunks of 128, one step cut to 20 chunks; launches exactly
+    2 passes x its 120 BatchNorms x 20 chunks (plus the evaluation's
+    ``apply``), no channels-last copy."""
+    from fullbatchtraining_tpu_torch import parallel
+
+    extra = DENSENET_MULTINODE + dist_config()
+    world = parallel.setup_distributed(main_path_config(extra, "gradreg").impl.setup, DEVICE)
+    try:
+        result = family_run(torch, bn, extra, "gradreg", passes=2)
+    finally:
+        parallel.shutdown(world)
+    bns, chunks = DENSENET_BNS, DENSENET_CHUNKS
+    check(result["norm_layers"] == bns, f"{result['norm_layers']} BatchNorms, not {bns}")
+    check(result["launches"]["stats"] == 2 * bns * chunks,
+          f"stats: {result['launches']['stats']} launches, not 2 x {bns} x {chunks}")
+    result["ms_per_chunk"] = 1e3 * result["step_s"][0] / chunks
+    log(f"  {result['ms_per_chunk']:.1f} ms a chunk of 128")
+    return strip(result)
+
+
+def phase_family_memory_efficient(torch, bn):
+    """13b: 13a's model and recipe over 4 chunks with ``memory_efficient``
+    (checkpointed dense layers) against the same 4 chunks without: loss,
+    gradient norm, params and running stats equal (bitwise expected, else
+    within ``MEMORY_EFFICIENT_TOL`` relative), peak memory lower."""
+    runs = {}
+    for efficient in (False, True):
+        runs[efficient] = family_run(
+            torch, bn, DENSENET_MULTINODE + MEMORY_EFFICIENT_CUT
+            + [f"model.memory_efficient={efficient}"], "gradreg", passes=2)
+    plain, eff = runs[False], runs[True]
+    ours, ref = eff["state"].model.state_dict(), plain["state"].model.state_dict()
+    worst = max(((ours[k].double() - ref[k].double()).norm()
+                 / ref[k].double().norm().clamp_min(1e-30)).item() for k in ref)
+    differ = [k for k in ref if not torch.equal(ours[k], ref[k])]
+    stat_gaps = {key: abs(eff["stats"][key][0] - plain["stats"][key][0])
+                 / abs(plain["stats"][key][0])
+                 for key in ("train_loss", "grad_norm", "full_loss", "valid_loss")}
+    result = {"plain": strip(plain), "memory_efficient": strip(eff),
+              "tensors_differ": len(differ), "max_rel_diff": worst, "stat_gaps": stat_gaps,
+              "bitwise": not differ and not any(stat_gaps.values())}
+    log(f"  memory_efficient: {len(differ)} of {len(ref)} tensors differ (largest relative "
+        f"L2 difference {worst:.2e}); stats' relative gaps {stat_gaps}; peak memory "
+        f"{eff['peak_memory_gib']:.2f} GiB against {plain['peak_memory_gib']:.2f} GiB")
+    check(worst <= MEMORY_EFFICIENT_TOL and max(stat_gaps.values()) <= MEMORY_EFFICIENT_TOL,
+          "the memory-efficient step differs from the plain one")
+    check(eff["peak_memory_gib"] < plain["peak_memory_gib"],
+          "the memory-efficient step did not lower peak memory")
+    return result
+
+
+def phase_family_fp32(torch, bn):
+    """13c: phase 3's check (a float32 step on the kernels against one under
+    ``plain_versions()``) on VGG11, PyramidNet-110 (the one-element path on
+    the main path), DenseNet-121 at 4 chunks of 128 and ResNet-18 under
+    ``SequentialGhostNorm``; each kernel run's launches exactly its model's."""
+    from fullbatchtraining_tpu_torch.data import construct_databundle
+    from fullbatchtraining_tpu_torch.models import construct_model
+
+    result = {}
+    for name, extra in FAMILY_FP32.items():
+        log(f"  {name}:")
+        bn.reset_counts()
+        counts, _, chunks = kernels_against_plain_step(torch, bn, extra=extra, control=True)
+        cfg = main_path_config(FP32_STEP + extra)
+        bundle = construct_databundle(cfg.data, cfg.impl, cfg.hyp, seed=cfg.seed)
+        model = construct_model(cfg.model, bundle.channels, bundle.classes)
+        calls = norm_calls(model, cfg.hyp.sub_batch)[0]
+        check(all(counts[k] == calls * chunks for k in KERNELS),
+              f"{name}: launches {counts}, expected {calls * chunks} of each of {KERNELS}")
+        result[name] = {"launches": counts, "chunks": chunks, "norm_calls_per_chunk": calls}
+    return result
+
+
+def phase_family_profile(torch):
+    """13f: one warm bf16 ``hyp=fb1`` step of PyramidNet-110 over one chunk
+    of 128 images under ``torch.profiler`` (phase 5's split): how much of a
+    13d chunk the card spends in the BN kernels, most of them at one element
+    a thread, in the convolutions and elsewhere, against the wall time."""
+    return phase_profile(torch, "fb1", PYRAMID_PROFILE, base=FAMILY_BF16_STEP)
+
+
+def phase_family_bf16(torch, bn):
+    """13d: two bf16 ``hyp=fb1`` steps each of ``FAMILY_BF16`` at the
+    configured chunks of 128, cut to 64 chunks."""
+    return {name: strip(family_run(torch, bn, FAMILY_BF16_STEP + extra))
+            for name, extra in FAMILY_BF16.items()}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write every measurement to this JSON file")
@@ -2056,8 +2344,11 @@ def main() -> int:
 
     started = time.time()
 
+    starts = {}   # phase -> its start, s after the script's
+
     def phase(title):
-        log(f"{title}  (at {time.time() - started:.0f} s)")
+        starts[title.split()[0]] = time.time() - started
+        log(f"{title}  (at {starts[title.split()[0]]:.0f} s)")
 
     card = card_line()
     log(f"[1] card: {card}")
@@ -2136,6 +2427,24 @@ def main() -> int:
     phase("[12c] one full-width step each: Wolfe GD, AdamW under LARC, GD-AGC, GD-clip")
     zoo_steps = phase_zoo_one_step(torch, bn, zoo_bundle)
     del zoo_bundle
+    phase("[13a] train_distributed_multinode.sh:15-16: hyp=gradreg model=densenet121, "
+          "20 chunks of 128")
+    fam_multinode = phase_family_multinode(torch, bn)
+    phase("[13b] model.memory_efficient=True: 13a's model over 4 chunks against the plain one")
+    fam_memeff = phase_family_memory_efficient(torch, bn)
+    phase("[13c] float32 steps of VGG11, PyramidNet-110, DenseNet-121 and ResNet-18 under "
+          "SequentialGhostNorm: kernels against plain versions")
+    fam_fp32 = phase_family_fp32(torch, bn)
+    phase("[13d] two bf16 hyp=fb1 steps each of 7 families and norms, 16 chunks of 128")
+    fam_bf16 = phase_family_bf16(torch, bn)
+    phase("[13e] kernels at PyramidNet-110's odd first-stage widths (128 and 2048 images) "
+          "and DenseNet-121's widest norm (128 images)")
+    family_rows = (phase_kernels(torch, bn, 128, ODD_WIDTHS + DENSENET_WIDEST)
+                   + phase_kernels(torch, bn, CHUNK, ODD_WIDTHS))
+    phase("[13f] profile of one bf16 PyramidNet-110 chunk of 128")
+    fam_profile = phase_family_profile(torch)
+    family_runs = [fam_multinode, fam_memeff["plain"], fam_memeff["memory_efficient"],
+                   *fam_fp32.values(), *fam_bf16.values()]
 
     kernels = []
     for name in ("stats", "apply", "bwd_reduce", "bwd_apply"):
@@ -2156,12 +2465,17 @@ def main() -> int:
             "launches_streamed": tiny_streamed["launches"][name],
             "launches_imagenet": imagenet["launches"][name],
             "launches_zoo": zoo_lbfgs["launches"][name],
+            "launches_families": sum(run["launches"][name] for run in family_runs),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": "bytes", "library_ms": total("library_ms"),
             "stem_224": {key: next(r[key] for r in stem_rows if r["kernel"] == name
                                    and r["dtype"] == "bfloat16")
-                         for key in ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")}})
+                         for key in ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")},
+            "family_shapes": {f"{r['dtype']} M={r['m']} C={r['c']}": {
+                key: r[key] for key in ("access_bytes", "ms", "host_ms", "plain_ms",
+                                        "bound_ms", "library_ms", "max_abs_err")}
+                for r in family_rows if r["kernel"] == name}})
         k = kernels[-1]
         log(f"  {name:10s} bf16 chunk: {k['ms']:.4f} ms, {k['ms'] / k['library_ms']:.2f}x its "
             f"library call, {k['ms'] / k['bound_ms']:.2f}x its bound")
@@ -2178,8 +2492,12 @@ def main() -> int:
              "stem_kernel_rows": stem_rows, "tinyimagenet": tiny,
              "tinyimagenet_streamed": tiny_streamed, "imagenet": imagenet, "jpeg_tree": jpeg,
              "zoo_lbfgs": zoo_lbfgs, "zoo_resume": zoo_resume, "zoo_steps": zoo_steps,
-             "kernels": kernels}, indent=1, default=str))
-    log(f"all phases passed in {time.time() - started:.0f} s")
+             "family_multinode": fam_multinode, "family_memory_efficient": fam_memeff,
+             "family_fp32": fam_fp32, "family_bf16": fam_bf16, "family_kernel_rows": family_rows,
+             "family_profile": fam_profile,
+             "kernels": kernels, "phase_starts_s": starts}, indent=1, default=str))
+    log(f"all phases passed in {time.time() - started:.0f} s; phases started at (s): "
+        + ", ".join(f"{k} {v:.0f}" for k, v in starts.items()))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -59,7 +59,8 @@ def main(overrides=None):
         start = time.time()
         bundle = construct_databundle(cfg.data, cfg.impl, cfg.hyp, dryrun=cfg.dryrun,
                                       seed=cfg.seed, device=device, world=world)
-        model = construct_model(cfg.model, bundle.channels, bundle.classes, seed=cfg.seed)
+        model = construct_model(cfg.model, bundle.channels, bundle.classes, seed=cfg.seed,
+                                pixels=bundle.pixels)
         _, stats = train(model, bundle, cfg, device=device, world=world)
         elapsed = time.time() - start
 

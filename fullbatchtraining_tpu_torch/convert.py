@@ -4,10 +4,15 @@
 ``{"params", "batch_stats"}`` given as nested numpy dicts (the flax tree of
 the same architecture); ``export_jax_variables(model)`` is its inverse. The
 layout rules are those of ``fullbatchtraining_tpu/pretrained.py``: conv
-kernels HWIO <-> OIHW, dense kernels (in, out) <-> (out, in), BN
-``scale``/``bias``/``mean``/``var`` <-> ``weight``/``bias``/``running_mean``/
-``running_var`` with the flax ``bn`` wrapper level in between. Both are
-strict: every port tensor is filled and every JAX leaf used, else they raise.
+kernels HWIO <-> OIHW (``WSConv2d``'s too, beside its ``gain``), dense
+kernels (in, out) <-> (out, in), norm ``scale``/``bias``/``mean``/``var`` <->
+``weight``/``bias``/``running_mean``/``running_var``, one level down where the
+JAX norm wraps an inner flax module (the module's ``jax_inner``: ``bn`` of
+``BatchNorm2d``, ``gn``/``ln`` of the group and layer norms; none for
+``GhostBatchNorm`` and PyramidNet's bare BatchNorms), and the 0-d
+``Skipper.alpha`` and ``NFBlock.skip_gain`` as they are. Both are strict:
+every port tensor is filled and every JAX leaf used, else they raise. A model
+without running stats has an empty ``batch_stats``.
 
 The optimizer and the rest of a train state move the same way:
 ``load_jax_sgd_state``/``export_jax_sgd_state`` carry the JAX ``SGDState``
@@ -38,7 +43,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from .models.layers import BatchNorm2d
+from .models.layers import BatchNorm2d, GroupNorm2d, LayerNorm2d, WSConv2d
+from .models.modules import GhostBatchNorm, Skipper
+from .models.nfnets import NFBlock
 
 
 def _conv_to_torch(a):
@@ -57,28 +64,55 @@ def _dense_t(a):
     return a.T
 
 
+_NORM_LEAVES = (("weight", "params", "scale"), ("bias", "params", "bias"),
+                ("running_mean", "batch_stats", "mean"), ("running_var", "batch_stats", "var"))
+
+
+def _module_rows(module: nn.Module, key: str, prefix: tuple):
+    """The rows of ``module``'s own tensors (not its children's)."""
+    if isinstance(module, (BatchNorm2d, GhostBatchNorm, GroupNorm2d, LayerNorm2d)):
+        inner = (module.jax_inner,) if module.jax_inner else ()
+        own = dict(module.named_parameters(recurse=False))
+        own.update(module.named_buffers(recurse=False))
+        return [(key + port, coll, prefix + inner + (leaf,), _identity, _identity)
+                for port, coll, leaf in _NORM_LEAVES if port in own]
+    if isinstance(module, (nn.Conv2d, WSConv2d)):
+        rows = [(key + "weight", "params", prefix + ("kernel",), _conv_to_torch, _conv_to_jax)]
+        if isinstance(module, WSConv2d):
+            rows.append((key + "gain", "params", prefix + ("gain",), _identity, _identity))
+        if module.bias is not None:
+            rows.append((key + "bias", "params", prefix + ("bias",), _identity, _identity))
+        return rows
+    if isinstance(module, nn.Linear):
+        return [(key + "weight", "params", prefix + ("kernel",), _dense_t, _dense_t),
+                (key + "bias", "params", prefix + ("bias",), _identity, _identity)]
+    own = {Skipper: "alpha", NFBlock: "skip_gain"}.get(type(module))
+    if own:
+        return [(key + own, "params", prefix + (own,), _identity, _identity)]
+    return []
+
+
 def _leaf_table(model: nn.Module):
     """(port state_dict key, collection, JAX path, to_torch, to_jax) rows."""
     rows = []
     for name, module in model.named_modules():
         prefix = tuple(name.split(".")) if name else ()
         key = f"{name}." if name else ""
-        if isinstance(module, BatchNorm2d):
-            for port, coll, leaf in (("weight", "params", "scale"), ("bias", "params", "bias"),
-                                     ("running_mean", "batch_stats", "mean"),
-                                     ("running_var", "batch_stats", "var")):
-                rows.append((key + port, coll, prefix + ("bn", leaf), _identity, _identity))
-        elif isinstance(module, nn.Conv2d):
-            rows.append((key + "weight", "params", prefix + ("kernel",),
-                         _conv_to_torch, _conv_to_jax))
-            if module.bias is not None:
-                rows.append((key + "bias", "params", prefix + ("bias",), _identity, _identity))
-        elif isinstance(module, nn.Linear):
-            rows.append((key + "weight", "params", prefix + ("kernel",), _dense_t, _dense_t))
-            rows.append((key + "bias", "params", prefix + ("bias",), _identity, _identity))
-        elif not list(module.children()) and list(module.parameters(recurse=False)):
+        mine = _module_rows(module, key, prefix)
+        covered = {row[0] for row in mine}
+        tensors = [*module.named_parameters(recurse=False), *module.named_buffers(recurse=False)]
+        if any(key + t not in covered for t, _ in tensors):
             raise TypeError(f"no JAX layout known for {type(module).__name__} at {name!r}")
+        rows += mine
     return rows
+
+
+def jax_shapes(model: nn.Module) -> dict:
+    """``{(collection, JAX path): JAX shape}`` of every leaf of ``model``'s
+    flax tree, read from the shapes alone (a ``meta`` model does)."""
+    state = model.state_dict()
+    return {(coll, path): to_jax(np.empty(tuple(state[key].shape), np.float32)).shape
+            for key, coll, path, _, to_jax in _leaf_table(model)}
 
 
 def _flatten(tree, prefix=()):
@@ -94,7 +128,8 @@ def _flatten(tree, prefix=()):
 def load_jax_variables(model: nn.Module, variables) -> nn.Module:
     """Copy flax ``variables`` into ``model`` (in place, converting to each
     tensor's dtype); raises on any missing, unused or misshapen leaf."""
-    leaves = {coll: _flatten(dict(variables.get(coll, {}))) for coll in ("params", "batch_stats")}
+    leaves = {coll: _flatten(dict(variables.get(coll) or {}))
+              for coll in ("params", "batch_stats")}
     state = model.state_dict()
     used = set()
     for key, coll, path, to_torch, _ in _leaf_table(model):
@@ -125,7 +160,7 @@ def export_jax_variables(model: nn.Module) -> dict:
         node = out[coll]
         for part in path[:-1]:
             node = node.setdefault(part, {})
-        node[path[-1]] = np.ascontiguousarray(to_jax(state[key].detach().cpu().numpy()))
+        node[path[-1]] = np.array(to_jax(state[key].detach().cpu().numpy()), order="C")
     return out
 
 
@@ -175,7 +210,7 @@ def params_to_jax(model: nn.Module, tensors) -> dict:
         node = out
         for part in path[:-1]:
             node = node.setdefault(part, {})
-        node[path[-1]] = np.ascontiguousarray(to_jax(value.detach().cpu().numpy()))
+        node[path[-1]] = np.array(to_jax(value.detach().cpu().numpy()), order="C")
     return out
 
 
@@ -183,10 +218,9 @@ def _ravel_segments(model: nn.Module):
     """(index in ``parameters()`` order, JAX shape) of each segment of a JAX
     ``ravel_pytree`` vector of the params: the leaves in sorted-key order."""
     rows = _param_rows(model)
-    shapes = {path: to_jax(np.empty(tuple(p.shape), np.float32)).shape
-              for p, path, _, to_jax in rows}
+    shapes = jax_shapes(model)
     index = {path: i for i, (_, path, _, _) in enumerate(rows)}
-    return [(index[path], shapes[path]) for path in sorted(index)]
+    return [(index[path], shapes["params", path]) for path in sorted(index)]
 
 
 def flat_from_jax(model: nn.Module, vec) -> torch.Tensor:

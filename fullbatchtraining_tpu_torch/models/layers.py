@@ -1,10 +1,21 @@
-"""Layer factory: convolution, BatchNorm and nonlinearity constructors.
+"""Layer factory: convolution, normalization and nonlinearity constructors.
 
-Counterpart of ``fullbatchtraining_tpu/models/layers.py`` for the layers of
-this port's slice: zero-padded ``Standard`` convolutions with kaiming-normal
-fan-out init and ``BatchNorm2d`` on the BN kernels of ``ops.bn``. Modules
-take NCHW tensors; the model keeps them in ``torch.channels_last``, so every
-BN input is a row-major ``[M, C]`` view without a copy.
+Counterpart of ``fullbatchtraining_tpu/models/layers.py``: zero-padded
+``Standard`` convolutions with kaiming-normal fan-out init, scaled
+weight-standardized ones (``WSConv2d``), ``BatchNorm2d`` on the BN kernels of
+``ops.bn`` and the norms of the zoo (``GroupNorm2d``, ``LayerNorm2d``,
+``InstanceNorm2d``, ``Identity``; ``GhostBatchNorm`` lives in
+``modules.py``). Modules take NCHW tensors; the model keeps them in
+``torch.channels_last``, so every BN input is a row-major ``[M, C]`` view
+without a copy.
+
+A norm whose JAX counterpart wraps an inner flax module names that module in
+``jax_inner`` (``bn``, ``gn``, ``ln``): ``convert.py`` puts its leaves one
+level down, and the activation estimate counts its output twice, as the JAX
+package's trace does.
+
+The initialisers take ``(tensor, generator)`` and follow the JAX package's
+distributions (its bits cannot match: threefry vs Philox).
 """
 
 from __future__ import annotations
@@ -20,34 +31,180 @@ from torch import nn
 from ..ops import bn as bn_ops
 
 
+def _fans(weight: torch.Tensor) -> tuple[int, int]:
+    """(fan_in, fan_out) of an ``[out, in, *kernel]`` weight."""
+    receptive = weight[0, 0].numel() if weight.dim() > 2 else 1
+    return weight.shape[1] * receptive, weight.shape[0] * receptive
+
+
 def kaiming_normal_out_(weight: torch.Tensor, generator: torch.Generator | None) -> None:
     """torch's kaiming_normal_(mode='fan_out', nonlinearity='relu'), the
     JAX package's ``kaiming_normal_out``."""
-    fan_out = weight.shape[0] * weight[0, 0].numel()
     with torch.no_grad():
-        weight.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
+        weight.normal_(0.0, math.sqrt(2.0 / _fans(weight)[1]), generator=generator)
 
 
-def torch_default_linear_(layer: nn.Linear, generator: torch.Generator | None) -> None:
-    """torch's Linear default, uniform(+-1/sqrt(fan_in)) for weight and bias,
-    drawn from ``generator`` (``torch_linear_init``/``torch_default_bias``)."""
-    bound = 1.0 / math.sqrt(layer.in_features)
+def kaiming_normal_in_(weight: torch.Tensor, generator: torch.Generator | None) -> None:
+    """torch's kaiming_normal_() defaults (fan_in, relu): ``kaiming_normal_in``."""
     with torch.no_grad():
-        layer.weight.uniform_(-bound, bound, generator=generator)
-        if layer.bias is not None:
-            layer.bias.uniform_(-bound, bound, generator=generator)
+        weight.normal_(0.0, math.sqrt(2.0 / _fans(weight)[0]), generator=generator)
+
+
+def torch_default_conv_(weight: torch.Tensor, generator: torch.Generator | None) -> None:
+    """torch's Conv2d/Linear default weight, uniform(+-1/sqrt(fan_in))
+    (``torch_default_conv``, ``torch_linear_init``)."""
+    bound = 1.0 / math.sqrt(_fans(weight)[0])
+    with torch.no_grad():
+        weight.uniform_(-bound, bound, generator=generator)
+
+
+def xavier_normal_(weight: torch.Tensor, generator: torch.Generator | None) -> None:
+    """flax ``xavier_normal``: variance 2/(fan_in + fan_out), drawn from a
+    standard normal truncated to (-2, 2) and rescaled to that variance."""
+    fan_in, fan_out = _fans(weight)
+    std = math.sqrt(2.0 / (fan_in + fan_out)) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(weight, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        weight.mul_(std)
+
+
+def normal_(std: float):
+    def init(weight: torch.Tensor, generator: torch.Generator | None) -> None:
+        with torch.no_grad():
+            weight.normal_(0.0, std, generator=generator)
+    return init
+
+
+def zeros_(tensor: torch.Tensor, generator: torch.Generator | None = None) -> None:
+    with torch.no_grad():
+        tensor.zero_()
+
+
+def torch_default_bias_(fan_in: int):
+    """torch's module-default bias, uniform(+-1/sqrt(fan_in))."""
+    bound = 1.0 / math.sqrt(fan_in)
+
+    def init(bias: torch.Tensor, generator: torch.Generator | None) -> None:
+        with torch.no_grad():
+            bias.uniform_(-bound, bound, generator=generator)
+    return init
+
+
+def linear(in_features: int, out_features: int, generator: torch.Generator | None,
+           weight_init: Callable = torch_default_conv_,
+           bias_init: Callable | None = None) -> nn.Linear:
+    """``nn.Linear`` drawn from ``generator``: ``weight_init`` for the weight,
+    ``bias_init`` (default: torch's uniform) for the bias."""
+    layer = nn.Linear(in_features, out_features)
+    weight_init(layer.weight, generator)
+    (bias_init or torch_default_bias_(in_features))(layer.bias, generator)
+    return layer
 
 
 def _conv(in_channels: int, features: int, kernel_size: int = 3, stride: int = 1,
           padding: int = 0, groups: int = 1, bias: bool = False, dilation: int = 1,
-          generator: torch.Generator | None = None) -> nn.Conv2d:
-    """Zero-padded conv, kaiming-normal fan-out weights, zero bias."""
+          generator: torch.Generator | None = None, kernel_init: Callable = kaiming_normal_out_,
+          bias_init: Callable = zeros_) -> nn.Conv2d:
+    """Zero-padded conv; kaiming-normal fan-out weights and zero bias unless
+    ``kernel_init``/``bias_init`` say otherwise."""
     conv = nn.Conv2d(in_channels, features, kernel_size, stride=stride, padding=padding,
                      dilation=dilation, groups=groups, bias=bias)
-    kaiming_normal_out_(conv.weight, generator)
+    kernel_init(conv.weight, generator)
     if conv.bias is not None:
-        nn.init.zeros_(conv.bias)
+        bias_init(conv.bias, generator)
     return conv
+
+
+class WSConv2d(nn.Module):
+    """Scaled weight-standardized convolution (NFNet's; JAX ``WSConv2d``).
+
+    The weight is ``(w - mean) * rsqrt(max(var * fan_in, 1e-4)) * gain``,
+    mean and unbiased var over the fan-in of each output channel, made from
+    the float parameters on every call, so under bf16 autocast the
+    standardization runs in float32 and only the convolution in bf16.
+    Xavier-normal weight, gain 1, torch-default uniform bias."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int = 3, stride: int = 1,
+                 padding: int = 0, groups: int = 1, bias: bool = True, dilation: int = 1,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.stride, self.padding, self.groups, self.dilation = stride, padding, groups, dilation
+        self.weight = nn.Parameter(torch.empty(features, in_channels // groups,
+                                               kernel_size, kernel_size))
+        self.gain = nn.Parameter(torch.ones(features))
+        self.fan_in = self.weight[0].numel()
+        xavier_normal_(self.weight, generator)
+        self.bias = None
+        if bias:
+            self.bias = nn.Parameter(torch.empty(features))
+            torch_default_bias_(self.fan_in)(self.bias, generator)
+
+    def standardized_weight(self) -> torch.Tensor:
+        w = self.weight
+        mean = w.mean(dim=(1, 2, 3), keepdim=True)
+        var = w.var(dim=(1, 2, 3), keepdim=True, unbiased=True)
+        scale = torch.rsqrt(torch.clamp(var * self.fan_in, min=1e-4))
+        return (w - mean) * scale * self.gain.view(-1, 1, 1, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, self.standardized_weight(), self.bias, self.stride, self.padding,
+                        self.dilation, self.groups)
+
+
+# --------------------------------------------------------------------------
+# norms
+# --------------------------------------------------------------------------
+
+_stat_updates = True
+
+
+class no_stat_updates:
+    """Norms leave their running stats alone inside this block: a
+    checkpointed forward's recompute runs in it, so a forward updates them
+    once, as the JAX package's ``nn.remat`` does. Reentrant: a double
+    backward enters one instance again."""
+
+    def __init__(self):
+        self._previous = []
+
+    def __enter__(self):
+        global _stat_updates
+        self._previous.append(_stat_updates)
+        _stat_updates = False
+
+    def __exit__(self, *exc):
+        global _stat_updates
+        _stat_updates = self._previous.pop()
+
+
+def stat_updates_on() -> bool:
+    return _stat_updates
+
+
+def bf16_affine(x: torch.Tensor, *params: torch.Tensor) -> list[torch.Tensor]:
+    """``params`` rounded to bfloat16 where ``x`` is bfloat16: the JAX step
+    casts every param to the compute dtype before the forward."""
+    return [p.to(x.dtype) if x.dtype == torch.bfloat16 else p for p in params]
+
+
+def ema_(running: torch.Tensor, batch: torch.Tensor, momentum: float, factor: float = 1.0):
+    """``running = momentum * running + (1 - momentum) * batch * factor``."""
+    with torch.no_grad():
+        running.copy_(momentum * running + (1 - momentum) * batch * factor)
+
+
+def eval_affine(x: torch.Tensor, weight, bias, running_mean, running_var, eps) -> torch.Tensor:
+    """Eval-mode BatchNorm of NCHW ``x`` from running stats: the ``apply``
+    kernel with ``a``, ``b`` folded in ``stat_dtype``; not differentiable."""
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
+        raise RuntimeError("eval-mode BatchNorm is not differentiable; "
+                           "call it under torch.no_grad()")
+    rows = x.permute(0, 2, 3, 1)
+    acc = bn_ops.stat_dtype(x.dtype)
+    a = weight.to(acc) * torch.rsqrt(running_var.to(acc) + eps)
+    b = bias.to(acc) - running_mean.to(acc) * a
+    flat = bn_ops.apply(bn_ops.as_rows(rows), torch.stack([a, b]))
+    return flat.view(rows.shape).permute(0, 3, 1, 2)
 
 
 class BatchNorm2d(nn.Module):
@@ -58,64 +215,162 @@ class BatchNorm2d(nn.Module):
     * the running variance takes the unbiased batch variance (``n/(n-1)``),
       normalisation uses the biased one;
     * statistics in ``promote(x.dtype, float32)``;
-    * bfloat16 inputs see ``weight``/``bias`` rounded to bfloat16 first, as
-      the JAX step casts every param to the compute dtype before the forward.
+    * bfloat16 inputs see ``weight``/``bias`` rounded to bfloat16 first.
 
     Train mode runs ``ops.bn.bn_train``; eval mode runs the ``apply`` kernel
     with ``a``, ``b`` folded from the running stats and is not
-    differentiable (call it under ``torch.no_grad()``).
+    differentiable (call it under ``torch.no_grad()``). ``jax_inner="bn"``
+    is the JAX ``BatchNorm2d`` wrapper; None is a bare ``_TorchBatchNorm``
+    (PyramidNet's).
     """
 
     def __init__(self, channels: int, momentum: float = 0.9, epsilon: float = 1e-5,
-                 scale_init: float = 1.0):
+                 scale_init: float = 1.0, jax_inner: str | None = "bn"):
         super().__init__()
         self.channels = channels
         self.momentum = momentum
         self.epsilon = epsilon
+        self.jax_inner = jax_inner
         self.weight = nn.Parameter(torch.full((channels,), float(scale_init)))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        scale, bias = bf16_affine(x, self.weight, self.bias)
+        if not self.training:
+            return eval_affine(x, scale, bias, self.running_mean, self.running_var,
+                               self.epsilon)
         rows = x.permute(0, 2, 3, 1)  # NHWC: contiguous when x is channels_last
-        scale, bias = self.weight, self.bias
-        if x.dtype == torch.bfloat16:
-            scale, bias = scale.to(x.dtype), bias.to(x.dtype)
-        if self.training:
-            y, mean, var = bn_ops.bn_train(rows, scale, bias, self.epsilon)
+        y, mean, var = bn_ops.bn_train(rows, scale, bias, self.epsilon)
+        if _stat_updates:
             n = rows.numel() / self.channels
-            m = self.momentum
-            with torch.no_grad():
-                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var
-                                       + (1 - m) * var * (n / max(n - 1, 1)))
-        else:
-            if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
-                raise RuntimeError("eval-mode BatchNorm2d is not differentiable; "
-                                   "call it under torch.no_grad()")
-            acc = bn_ops.stat_dtype(x.dtype)
-            a = scale.to(acc) * torch.rsqrt(self.running_var.to(acc) + self.epsilon)
-            b = bias.to(acc) - self.running_mean.to(acc) * a
-            flat = bn_ops.apply(bn_ops.as_rows(rows), torch.stack([a, b]))
-            y = flat.view(rows.shape)
+            ema_(self.running_mean, mean, self.momentum)
+            ema_(self.running_var, var, self.momentum, n / max(n - 1, 1))
         return y.permute(0, 3, 1, 2)
 
 
+class GroupNorm2d(nn.Module):
+    """flax ``nn.GroupNorm`` (eps 1e-5) over NCHW, holding ``gn.{scale,bias}``;
+    ``channels`` must be a multiple of ``num_groups``, as flax requires."""
+
+    jax_inner = "gn"
+
+    def __init__(self, channels: int, num_groups: int = 32, scale_init: float = 1.0):
+        super().__init__()
+        if num_groups <= 0 or channels % num_groups:
+            raise ValueError(f"Number of groups ({num_groups}) does not divide the number "
+                             f"of channels ({channels}).")
+        self.num_groups = num_groups
+        self.weight = nn.Parameter(torch.full((channels,), float(scale_init)))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        weight, bias = bf16_affine(x, self.weight, self.bias)
+        return F.group_norm(x, self.num_groups, weight, bias, 1e-5).to(x.dtype)
+
+
+class LayerNorm2d(nn.Module):
+    """flax ``nn.LayerNorm()`` as the JAX package applies it to NHWC
+    activations: over the channel axis alone, per pixel, eps 1e-6, holding
+    ``ln.{scale,bias}``."""
+
+    jax_inner = "ln"
+
+    def __init__(self, channels: int, scale_init: float = 1.0):
+        super().__init__()
+        self.weight = nn.Parameter(torch.full((channels,), float(scale_init)))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        weight, bias = bf16_affine(x, self.weight, self.bias)
+        rows = x.permute(0, 2, 3, 1)
+        y = F.layer_norm(rows, (rows.shape[-1],), weight, bias, 1e-6)
+        return y.to(x.dtype).permute(0, 3, 1, 2)
+
+
+class InstanceNorm2d(nn.Module):
+    """torch ``InstanceNorm2d``'s defaults: no affine, biased variance over
+    H, W per sample and channel, eps 1e-5."""
+
+    def __init__(self, channels: int, scale_init: float = 1.0):
+        super().__init__()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mean = x.mean(dim=(2, 3), keepdim=True)
+        var = x.var(dim=(2, 3), keepdim=True, unbiased=False)
+        return (x - mean) * torch.rsqrt(var + 1e-5)
+
+
+class Identity(nn.Identity):
+    """The norm that is none (``SkipInit``, ``none``, ``identity``)."""
+
+    def __init__(self, channels: int = 0, scale_init: float = 1.0):
+        super().__init__()
+
+
+def _refused_padding(mode: str):
+    def conv(*args, **kwargs):
+        raise ValueError(
+            f"convolution type {mode!r}: the JAX reference cannot build this padding mode "
+            "either (its _PaddedConv takes the name of the conv it wraps, and flax raises "
+            "NameInUseError), so the port refuses it")
+    return conv
+
+
+def _standardized(in_channels, features, kernel_size=3, stride=1, padding=0, groups=1,
+                  bias=False, dilation=1, generator=None, **_):
+    """``Standardized``: the callers' ``bias`` passes through, and any
+    ``kernel_init``/``bias_init`` is dropped (WSConv2d has its own)."""
+    return WSConv2d(in_channels, features, kernel_size, stride, padding, groups, bias,
+                    dilation, generator)
+
+
 def get_layer_functions(convolution_type: str, norm: str, nonlin: str):
-    """``(conv_ctor, norm_ctor, nonlin_fn)`` for the slice's layers.
+    """``(conv_ctor, norm_ctor, nonlin_fn)``, as the JAX package's.
 
     conv_ctor(in_channels, features, kernel_size=, stride=, padding=, groups=,
-    bias=, dilation=, generator=); norm_ctor(channels, scale_init=)."""
-    if convolution_type.lower() not in ("standard", "default", "zeros"):
-        raise NotImplementedError(
-            f"convolution type {convolution_type!r} is not ported yet "
-            "(ROADMAP.md, 'Other model families and norms')")
-    if norm.lower() != "batchnorm2d":
-        raise NotImplementedError(
-            f"norm {norm!r} is not ported yet "
-            "(ROADMAP.md, 'Other model families and norms')")
-    return _conv, BatchNorm2d, get_nonlin(nonlin)
+    bias=, dilation=, generator=, kernel_init=, bias_init=);
+    norm_ctor(channels, scale_init=)."""
+    ct = convolution_type.lower()
+    if ct in ("standard", "default", "zeros"):
+        conv_layer = _conv
+    elif ct in ("circular", "reflect", "replicate"):
+        conv_layer = _refused_padding(ct)
+    elif ct == "standardized":
+        conv_layer = _standardized
+    else:
+        raise ValueError(f"Invalid convolution type {convolution_type} provided.")
+
+    from .modules import GhostBatchNorm   # modules.py imports this module
+
+    nl = norm.lower()
+    if nl == "batchnorm2d":
+        norm_layer = BatchNorm2d
+    elif nl in ("sequentialghostnorm", "ghostnorm"):
+        norm_layer = GhostBatchNorm
+    elif nl == "groupnorm":
+        norm_layer = partial(GroupNorm2d, num_groups=32)
+    elif nl == "groupnorm1":
+        norm_layer = partial(GroupNorm2d, num_groups=1)
+    elif nl == "groupnorm8":
+        def norm_layer(channels, **kw):
+            return GroupNorm2d(channels, num_groups=min(8, channels), **kw)
+    elif nl == "groupnorm32":
+        def norm_layer(channels, **kw):
+            return GroupNorm2d(channels, num_groups=min(32, channels), **kw)
+    elif nl == "groupnorm4th":
+        def norm_layer(channels, **kw):
+            return GroupNorm2d(channels, num_groups=channels // 4, **kw)
+    elif nl == "layernorm":
+        norm_layer = LayerNorm2d
+    elif nl == "instancenorm2d":
+        norm_layer = InstanceNorm2d
+    elif nl in ("skipinit", "none", "identity"):
+        norm_layer = Identity
+    else:
+        raise ValueError(f"Invalid norm layer {norm} found.")
+    return conv_layer, norm_layer, get_nonlin(nonlin)
 
 
 _NONLINS: dict[str, Callable] = {
@@ -147,9 +402,19 @@ def max_pool(x: torch.Tensor, window: int, stride: int, padding: int = 0) -> tor
     return F.max_pool2d(x, window, stride, padding)
 
 
-def avg_pool(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
-    return F.avg_pool2d(x, window, stride)
+def avg_pool(x: torch.Tensor, window: int, stride: int, padding: int = 0,
+             count_include_pad: bool = True) -> torch.Tensor:
+    """torch ``nn.AvgPool2d``: with ``count_include_pad=False`` each window
+    divides by the real (unpadded) elements it covers."""
+    return F.avg_pool2d(x, window, stride, padding, count_include_pad=count_include_pad)
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     return x.mean(dim=(2, 3))
+
+
+def flatten_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """``[N, C, H, W]`` -> ``[N, H*W*C]`` in NHWC order, the order of the JAX
+    package's ``x.reshape(N, -1)``, so flax ``Dense`` kernels convert without
+    a permutation of rows."""
+    return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)

@@ -5,8 +5,12 @@ Submodule names follow the JAX package (``stem_conv1``, ``stem_bn1``,
 ``downsample.conv``/``downsample.norm``, ``fc``), so moving weights between
 the two is a name join plus layout transposes (``convert.py``).
 ``initialization: skip-residual`` zero-initialises the last BN of every
-block, as the JAX package does. The public ``forward`` takes NHWC images;
-inside, activations are NCHW tensors in ``torch.channels_last``.
+block, as the JAX package does. ``normalization: SkipInit`` builds the
+pre-activation blocks that end in a ``Skipper`` (``skip``), with biases on
+every conv and ``preact-`` shortcuts; ``none`` builds the plain blocks over
+``Identity`` norms with no conv bias, as the JAX package does. The public
+``forward`` takes NHWC images; inside, activations are NCHW tensors in
+``torch.channels_last``.
 """
 
 from __future__ import annotations
@@ -16,8 +20,8 @@ from typing import Callable, Sequence
 import torch
 from torch import nn
 
-from .layers import (avg_pool, get_layer_functions, global_avg_pool, max_pool,
-                     torch_default_linear_)
+from .layers import avg_pool, get_layer_functions, global_avg_pool, linear, max_pool
+from .modules import Skipper
 
 
 def resnet_depths_to_config(depth: int):
@@ -42,26 +46,29 @@ _EXPANSION = {"basic": 1, "bottleneck": 4}
 
 
 class _Downsample(nn.Module):
-    """Shortcut projection, variants A (1x1 conv), B (1x1 conv + norm) and
-    C (avg_pool, 1x1 conv, norm)."""
+    """Shortcut projection, variants A (1x1 conv), B (1x1 conv + norm), C
+    (avg_pool, 1x1 conv, norm), preact-B (nonlin, 1x1 conv) and preact-C
+    (nonlin, avg_pool, 1x1 conv)."""
 
     def __init__(self, variant: str, in_planes: int, features: int, stride: int,
-                 conv: Callable, norm: Callable, use_bias: bool, generator):
+                 conv: Callable, norm: Callable, nonlin: Callable, use_bias: bool, generator):
         super().__init__()
-        if variant not in ("A", "B", "C"):
+        if variant not in ("A", "B", "C", "preact-B", "preact-C"):
             raise ValueError("Invalid downsample block specification.")
-        self.variant, self.stride = variant, stride
-        conv_stride = 1 if variant == "C" else stride
-        self.conv = conv(in_planes, features, kernel_size=1, stride=conv_stride,
+        self.variant, self.stride, self.nonlin = variant, stride, nonlin
+        pooled = variant.endswith("C")
+        self.conv = conv(in_planes, features, kernel_size=1, stride=1 if pooled else stride,
                          bias=use_bias, generator=generator)
-        if variant != "A":
+        if variant in ("B", "C"):
             self.norm = norm(features)
 
     def forward(self, x):
-        if self.variant == "C":
+        if self.variant.startswith("preact"):
+            x = self.nonlin(x)
+        if self.variant.endswith("C"):
             x = avg_pool(x, window=self.stride, stride=self.stride)
         x = self.conv(x)
-        return x if self.variant == "A" else self.norm(x)
+        return self.norm(x) if self.variant in ("B", "C") else x
 
 
 class BasicBlock(nn.Module):
@@ -82,7 +89,7 @@ class BasicBlock(nn.Module):
         self.downsample = None
         if downsample is not None:
             self.downsample = _Downsample(downsample, in_planes, planes, stride, conv,
-                                          norm, use_bias, generator)
+                                          norm, nonlin, use_bias, generator)
 
     def forward(self, x):
         out = self.nonlin(self.bn1(self.conv1(x)))
@@ -116,7 +123,7 @@ class Bottleneck(nn.Module):
         self.downsample = None
         if downsample is not None:
             self.downsample = _Downsample(downsample, in_planes, out_planes, stride, conv,
-                                          norm, use_bias, generator)
+                                          norm, nonlin, use_bias, generator)
 
     def forward(self, x):
         out = self.nonlin(self.bn1(self.conv1(x)))
@@ -126,7 +133,73 @@ class Bottleneck(nn.Module):
         return self.nonlin(out + identity)
 
 
-_BLOCKS = {"basic": BasicBlock, "bottleneck": Bottleneck}
+class BasicBlockSkipInit(nn.Module):
+    """Pre-activation basic block ending in SkipInit's gain (``skip``)."""
+
+    expansion = 1
+
+    def __init__(self, in_planes: int, planes: int, stride: int, conv: Callable,
+                 norm: Callable, nonlin: Callable, use_bias: bool, downsample: str | None = None,
+                 zero_init_residual: bool = False, groups: int = 1, base_width: int = 64,
+                 generator=None):
+        super().__init__()
+        self.nonlin = nonlin
+        self.conv1 = conv(in_planes, planes, kernel_size=3, stride=stride, padding=1,
+                          bias=use_bias, generator=generator)
+        self.conv2 = conv(planes, planes, kernel_size=3, stride=1, padding=1,
+                          bias=use_bias, generator=generator)
+        self.skip = Skipper()
+        self.downsample = None
+        if downsample is not None:
+            self.downsample = _Downsample(downsample, in_planes, planes, stride, conv,
+                                          norm, nonlin, use_bias, generator)
+
+    def forward(self, x):
+        out = self.conv1(self.nonlin(x))
+        out = self.skip(self.conv2(self.nonlin(out)))
+        identity = x if self.downsample is None else self.downsample(x)
+        return out + identity
+
+
+class BottleneckSkipInit(nn.Module):
+    """Pre-activation bottleneck (stride on the 3x3) ending in ``skip``."""
+
+    expansion = 4
+
+    def __init__(self, in_planes: int, planes: int, stride: int, conv: Callable,
+                 norm: Callable, nonlin: Callable, use_bias: bool, downsample: str | None = None,
+                 zero_init_residual: bool = False, groups: int = 1, base_width: int = 64,
+                 generator=None):
+        super().__init__()
+        self.nonlin = nonlin
+        width = int(planes * (base_width / 64.0)) * groups
+        out_planes = planes * self.expansion
+        self.conv1 = conv(in_planes, width, kernel_size=1, stride=1, bias=use_bias,
+                          generator=generator)
+        self.conv2 = conv(width, width, kernel_size=3, stride=stride, padding=1,
+                          groups=groups, bias=use_bias, generator=generator)
+        self.conv3 = conv(width, out_planes, kernel_size=1, stride=1, bias=use_bias,
+                          generator=generator)
+        self.skip = Skipper()
+        self.downsample = None
+        if downsample is not None:
+            self.downsample = _Downsample(downsample, in_planes, out_planes, stride, conv,
+                                          norm, nonlin, use_bias, generator)
+
+    def forward(self, x):
+        out = self.conv1(self.nonlin(x))
+        out = self.conv2(self.nonlin(out))
+        out = self.skip(self.conv3(self.nonlin(out)))
+        identity = x if self.downsample is None else self.downsample(x)
+        return out + identity
+
+
+_BLOCKS = {
+    ("basic", False): BasicBlock,
+    ("basic", True): BasicBlockSkipInit,
+    ("bottleneck", False): Bottleneck,
+    ("bottleneck", True): BottleneckSkipInit,
+}
 
 
 class ResNet(nn.Module):
@@ -138,13 +211,12 @@ class ResNet(nn.Module):
                  nonlin: str = "ReLU", stem: str = "CIFAR", downsample: str = "B",
                  convolution_type: str = "Standard", generator: torch.Generator | None = None):
         super().__init__()
-        if norm.lower() == "skipinit":
-            raise NotImplementedError(
-                "SkipInit ResNets are not ported yet "
-                "(ROADMAP.md, 'Other model families and norms')")
         conv, norm_layer, self.nonlin = get_layer_functions(convolution_type, norm, nonlin)
-        use_bias = False
-        block_cls = _BLOCKS[block_type]
+        skipinit = norm.lower() == "skipinit"
+        use_bias = skipinit
+        if skipinit:
+            downsample = f"preact-{downsample}"
+        block_cls = _BLOCKS[(block_type, skipinit)]
         expansion = _EXPANSION[block_type]
         inplanes = width_per_group if block_type == "basic" else 64
         base_width = width_per_group if block_type == "bottleneck" else 64
@@ -185,8 +257,7 @@ class ResNet(nn.Module):
                 current = width * expansion
             width *= 2
         # fc keeps torch Linear's default init (uniform +-1/sqrt(fan_in))
-        self.fc = nn.Linear(current, classes)
-        torch_default_linear_(self.fc, generator)
+        self.fc = linear(current, classes, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC images -> logits. ``permute`` of a contiguous NHWC tensor is

@@ -256,7 +256,8 @@ def as_rows(t: torch.Tensor) -> torch.Tensor:
     """``[..., C]`` -> contiguous ``[M, C]``; a copy only for a strided input."""
     global layout_copies
     if not t.is_contiguous():
-        layout_copies += 1
+        # the activation estimate's probe on the meta device moves no data
+        layout_copies += t.device.type != "meta"
         t = t.contiguous()
     return t.reshape(-1, t.shape[-1])
 

@@ -47,7 +47,15 @@ trains on ``[:, r]`` of the step's rows laid out ``(blocks, W, chunks,
 sub)`` with its own augmentation draws and BN running stats; a full-batch
 pass ends in one ``all_reduce`` over a bucket of the gradient mean, the BN
 stats, the scalar stats and per-chunk norm slots, and a stochastic update
-takes the mean of the ranks' block gradients. ``impl.mixed_precision`` runs
+takes the mean of the ranks' block gradients.
+
+Dropout and stochastic depth draw from a generator seeded per chunk (per
+block in a stochastic step or the regularizer's pre-pass) from the step's
+generator (:meth:`Trainer.layer_seed`), opened around each forward
+(``models.modules.layer_draws``); the regularizer's second gradient, a SAM
+pass and a closure driver's re-evaluations of a block open it with the same
+seed, so they see the first pass's masks, as the JAX package hands them the
+chunk's key. ``impl.mixed_precision`` runs
 the forward under bf16 autocast with fp32 parameters and accumulators;
 logits are cast to the stat dtype.
 """
@@ -70,7 +78,7 @@ from ..convert import jax_param_paths
 from ..data.augmentations import normalize as normalize_images
 from ..data.pipeline import DataBundle, epoch_layout, epoch_order, rank_rows, stream_plan
 from ..models.models import estimate_activation_bytes
-from ..models.modules import get_loss_fn
+from ..models.modules import get_loss_fn, layer_draws
 from ..parallel import World, all_reduce, all_reduce_parts, barrier, current_world
 from ..parallel.streaming import HostRows, host_tensor, stream_segments
 from ..utils import resolve_device
@@ -87,6 +95,9 @@ _DTYPES = {"float": torch.float32, "float32": torch.float32, "float64": torch.fl
 # gradient noise comes from one stream that no rank reaches
 _NOISE_STREAM = 1 << 32
 _STREAM_STRIDE = 0x9E3779B97F4A7C15   # an odd 64-bit constant
+# the stochastic layers' seeds of the acc_strength pre-pass's blocks, apart
+# from the chunks' (the JAX package's 7_000_000 + block)
+_PRE_PASS_DRAWS = 7_000_000
 
 
 @dataclasses.dataclass
@@ -263,6 +274,8 @@ class Trainer:
         self.model = model
         self.param_names = [name for name, _ in model.named_parameters()]
         self.params = list(model.parameters())
+        # the seed of the stochastic layers' draws in the current chunk or block
+        self.draw_seed = None
         self.reg_fn = make_grad_regularizer(hyp.grad_reg, self.regrad)
         self.sam_rho = (float(hyp.optim_modification.rho)
                         if hyp.optim_modification.name == "SAM" else None)
@@ -366,10 +379,19 @@ class Trainer:
         return images.to(self.compute_dtype) / 255.0
 
     def forward(self, model, x):
+        """Logits of ``model`` on ``x`` in ``stat_dtype``; stochastic layers
+        draw from ``self.draw_seed``."""
         with torch.autocast(self.device.type, dtype=self.autocast_dtype or torch.bfloat16,
-                            enabled=self.autocast_dtype is not None):
+                            enabled=self.autocast_dtype is not None), layer_draws(self.draw_seed):
             logits = model(x)
         return logits.to(self.stat_dtype)
+
+    @staticmethod
+    def layer_seed(gen: torch.Generator, index: int) -> int:
+        """The stochastic layers' seed of chunk (or block) ``index`` of the
+        step whose generator is ``gen``: a function of ``gen``'s seed and
+        ``index`` alone, so it draws nothing from ``gen``."""
+        return (gen.initial_seed() ^ ((index + 1) * _STREAM_STRIDE)) % 2**64
 
     def generator(self, step: int, stream: int | None = None) -> torch.Generator:
         """The generator of step ``step`` and ``stream``, by default this
@@ -385,7 +407,8 @@ class Trainer:
         """Gradient of the chunk loss with respect to ``params`` (a list in
         ``self.params`` order, requiring grad) on the prepared inputs ``x``:
         the regularizer's ``grad_fn``. BatchNorm runs in train mode on clones
-        of the running stats, so the model's own see one update per chunk."""
+        of the running stats, so the model's own see one update per chunk;
+        stochastic layers draw the masks of the chunk's own forward."""
         state = dict(zip(self.param_names, params))
         state.update({name: b.clone() for name, b in self.model.named_buffers()})
         logits = self.forward(lambda inputs: functional_call(self.model, state, (inputs,)), x)
@@ -425,8 +448,9 @@ class Trainer:
         for start, seg_images, seg_labels in self.segments(images, labels):
             for b in range(len(seg_images) // self.chunks):
                 x, lbls = self.block(seg_images, seg_labels, b, gen)
-                self._add_to_mean(avg, self.regrad(self.params, x, lbls),
-                                  start // self.chunks + b + 1)
+                index = start // self.chunks + b
+                self.draw_seed = self.layer_seed(gen, _PRE_PASS_DRAWS + index)
+                self._add_to_mean(avg, self.regrad(self.params, x, lbls), index + 1)
         return avg
 
     # -- one full-batch step --------------------------------------------------
@@ -449,6 +473,7 @@ class Trainer:
                 if self.bundle.augmentations_active:
                     chunk = self.bundle.augment(chunk, gen)
                 x = self._normalize(chunk)
+                self.draw_seed = self.layer_seed(gen, start + row)
                 logits = self.forward(model, x)
                 loss = self.criterion(logits, lbls)
                 grads = torch.autograd.grad(loss, self.params)
@@ -669,9 +694,10 @@ class Trainer:
         sloss = torch.zeros((), dtype=self.stat_dtype, device=self.device)
         spreds = torch.zeros((), dtype=self.stat_dtype, device=self.device)
         sq_norms = []
-        for _, seg_images, seg_labels in self.segments(images, labels):
+        for start, seg_images, seg_labels in self.segments(images, labels):
             for b in range(len(seg_images) // self.chunks):
                 x, lbls = self.block(seg_images, seg_labels, b, gen)
+                self.draw_seed = self.layer_seed(gen, start // self.chunks + b)
                 grads, loss, correct, sq_norm = self.block_grads(self.params, x, lbls, lr)
                 if self.sam_rho is not None:
                     norm = torch.sqrt(tree_sqnorm(grads))
@@ -734,9 +760,12 @@ class Trainer:
         state.model.train()
 
         def blocks():
-            for _, seg_images, seg_labels in self.segments(images, labels):
+            for start, seg_images, seg_labels in self.segments(images, labels):
                 for b in range(len(seg_images) // self.chunks):
-                    yield self.block(seg_images, seg_labels, b, gen)
+                    block = self.block(seg_images, seg_labels, b, gen)
+                    # every evaluation of this block draws the same masks
+                    self.draw_seed = self.layer_seed(gen, start // self.chunks + b)
+                    yield block
 
         new, metrics = step_fn(self.driver_state(state), blocks())
         self.commit(state, new)

@@ -1,16 +1,21 @@
 """Checkpoint interop between the port and the JAX package: a JAX checkpoint
 resumes in the port, and a port state written as a JAX checkpoint resumes in
-the JAX ``train()`` (``tests/test_torch_checkpoint.py`` sets up the runs)."""
+the JAX ``train()`` (``tests/test_torch_checkpoint.py`` sets up the runs); the
+train states of the stat-free NFNet and of a DenseNet round-trip."""
 
 import shutil
 
 import jax
+import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 from flax import serialization
 
+import fullbatchtraining_tpu.models.models as jax_models
 import fullbatchtraining_tpu.training.training as jax_training
 from fullbatchtraining_tpu.config import load_config as jax_load_config
+from fullbatchtraining_tpu.data import construct_databundle as jax_databundle
 from fullbatchtraining_tpu.parallel import make_mesh
 from fullbatchtraining_tpu.training.utils import load_checkpoint as jax_load_checkpoint
 from fullbatchtraining_tpu_torch.config import load_config
@@ -85,3 +90,52 @@ def test_port_state_resumes_in_jax(config_dir, tmp_path, monkeypatch):
                                  3, name="from_port.ckpt")
     _assert_states_match_jax(straight, ref)
     _assert_stats_close({k: v[1:] for k, v in stats_straight.items()}, ref_stats)
+
+
+@pytest.mark.parametrize("family", ["nfnet", "densenet"])
+def test_family_train_state_round_trips(family, config_dir, monkeypatch):
+    """A JAX ``TrainState`` of an NFNet (no ``batch_stats``) and of a DenseNet,
+    after one step of momentum, loads into the port and exports back leaf
+    for leaf unchanged."""
+    import fullbatchtraining_tpu.models.nfnets as jax_nfnets
+    import fullbatchtraining_tpu_torch.models.models as port_models
+    from fullbatchtraining_tpu_torch.models import nfnets
+
+    for module in (jax_nfnets, nfnets):
+        monkeypatch.setattr(module, "nfnet_params", {"F0": {
+            "width": [256], "depth": [1], "train_imsize": 32, "test_imsize": 32,
+            "drop_rate": 0.2}})
+    for module in (jax_models, port_models):
+        monkeypatch.setattr(module, "densenet_depths_to_config", lambda depth: (4, (2, 2), 8))
+    overrides = [o for o in BASE if not o.startswith("model")] + [
+        {"nfnet": "model=nfn", "densenet": "model=densenet121"}[family]]
+    with jax.enable_x64(True):
+        cfg = jax_load_config(config_dir, overrides=overrides)
+        mesh = make_mesh(cfg.impl.setup, devices=np.asarray(jax.devices()[:1]))
+        bundle = jax_databundle(cfg.data, cfg.impl, cfg.hyp, seed=0)
+        model = jax_models.construct_model(cfg.model, bundle.channels, bundle.classes)
+        variables = jax.device_get(jax_models.initialize_model(
+            model, jax.random.key(0), bundle.pixels, bundle.channels, dtype=jnp.float64))
+        template = jax_training.make_train_functions(model, bundle, mesh, cfg).init_state(
+            variables)
+        tree = serialization.to_state_dict(jax.device_get(template))
+    # a step's worth of momentum, so the optimizer's buffers are not all zero
+    rng = np.random.default_rng(0)
+    tree["opt_state"]["momentum"] = jax.tree.map(lambda a: rng.standard_normal(np.shape(a)),
+                                                 tree["opt_state"]["momentum"])
+    tree["opt_state"]["count"] = np.int32(1)
+    tree["step"] = np.int32(1)
+    assert bool(tree["batch_stats"]) == (family == "densenet")
+
+    tcfg = load_config(config_dir, overrides=overrides)
+    tmodel = construct_model(tcfg.model, 3, 10).to(torch.float64)
+    state = TrainState(step=0, model=tmodel, optimizer=make_optimizer(tmodel, tcfg.hyp),
+                       ema_model=construct_model(tcfg.model, 3, 10).to(torch.float64))
+    load_jax_train_state(state, tree)
+    out = export_jax_train_state(state)
+    flat = dict(jax.tree_util.tree_leaves_with_path(out))
+    ref = dict(jax.tree_util.tree_leaves_with_path(tree))
+    assert {jax.tree_util.keystr(k) for k in flat} == {jax.tree_util.keystr(k) for k in ref}
+    for path, leaf in ref.items():
+        np.testing.assert_array_equal(flat[path], np.asarray(leaf),
+                                      err_msg=jax.tree_util.keystr(path))

@@ -31,6 +31,8 @@ def test_importing_every_module_loads_no_jax():
             "fullbatchtraining_tpu_torch.data.policy_augment",
             "fullbatchtraining_tpu_torch.parallel",
             "fullbatchtraining_tpu_torch.parallel.streaming",
+            *(f"fullbatchtraining_tpu_torch.models.{name}" for name in (
+                "densenets", "layers", "modules", "nfnets", "pyramidnets", "resnets", "vgg")),
             *(f"fullbatchtraining_tpu_torch.training.opt.{name}" for name in (
                 "adaptive_clipping", "agc", "closures", "fista", "lars", "lbfgs"))
             } <= set(_modules())
@@ -114,14 +116,11 @@ BOUNDARIES = {
     "trace": ["impl.trace=True"],
     "float16-compute": ["impl.compute_dtype=float16"],
     "float16-params": ["impl.dtype=float16"],
-    "vgg": ["model=vgg11"],
-    "densenet": ["model=densenet121"],
-    "groupnorm": ["model.normalization=GroupNorm"],
-    "pyramidnet": ["model=pyramidnet110"],
-    "nfnet": ["model=nfn"],
 }
-# modes that raised until the streamed epochs, other datasets and the
-# optimizer zoo came in
+# full-width families run their dryrun step on blocks of 16 images
+SMALL_BLOCK = ["data.batch_size=16"]
+# modes that raised until the streamed epochs, other datasets, the optimizer
+# zoo and the other model families and norms came in
 FORMER_BOUNDARIES = {
     "lars": ["hyp/optim_modification=LARS"],
     "larc": ["hyp/optim_modification=LARC"],
@@ -135,6 +134,17 @@ FORMER_BOUNDARIES = {
     "random-resized-crop": ["+data.augmentations_train.RandomResizedCrop=32"],
     "tinyimagenet": ["data=TinyImageNet"],
     "resize-eval": ["+data.augmentations_val.Resize=32"],
+    "vgg": ["model=vgg11", *SMALL_BLOCK],
+    "densenet": ["model=densenet121", *SMALL_BLOCK],
+    # GroupNorm's 32 groups need a width that 32 divides
+    "groupnorm": ["model.normalization=GroupNorm", "model.width=32", *SMALL_BLOCK],
+    "pyramidnet": ["model=pyramidnet110", *SMALL_BLOCK],
+    "nfnet": ["model=nfn", *SMALL_BLOCK],
+    "linear": ["model=linear"],
+    "ghostnorm": ["model.normalization=SequentialGhostNorm"],
+    "skipinit": ["model.normalization=SkipInit"],
+    "layernorm": ["model.normalization=LayerNorm"],
+    "standardized": ["model.convolution=Standardized"],
 }
 
 
@@ -169,9 +179,11 @@ def test_modes_now_in_the_slice_run(case, config_dir):
     from fullbatchtraining_tpu_torch.models import construct_model
     from fullbatchtraining_tpu_torch.training import train
 
-    cfg = load_config(config_dir, overrides=TINY + FORMER_BOUNDARIES[case])
+    swaps_model = any(o.startswith("model=") for o in FORMER_BOUNDARIES[case])
+    base = [o for o in TINY if not (swaps_model and o.startswith("model"))]
+    cfg = load_config(config_dir, overrides=base + FORMER_BOUNDARIES[case])
     bundle = construct_databundle(cfg.data, dryrun=True)
-    model = construct_model(cfg.model, bundle.channels, bundle.classes)
+    model = construct_model(cfg.model, bundle.channels, bundle.classes, pixels=bundle.pixels)
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
