@@ -137,6 +137,22 @@ Phases, in order; any failure exits non-zero before the result lines:
    (C = 1024, 4x4, 128 images). (f) One warm bf16 ``hyp=fb1`` chunk of
    128 of PyramidNet-110 under ``torch.profiler``: device time by kernel
    class against the wall time.
+14. Analysis (``analysis=full``), whose per-chunk sweep runs eval-mode
+   forwards and backwards in float32 through ``BNEval`` (``apply`` forward;
+   ``apply`` and ``bwd_reduce`` backward). (a) ``BNEval`` against its plain
+   versions at ResNet-18's stage shapes for a chunk of 128, float32 and
+   bf16, with exact launches. (b) ``analyze`` at full width over 4,096
+   images (32 chunks of 128) on the kernels against ``plain_versions()``:
+   per-batch norms, SNR, noise scale, gradient norm and momentum measures
+   within 1e-4; the sweep streamed from the host bitwise the resident one.
+   (c) The sweep over all 50,000 images (390 chunks of 128): exactly 15,600
+   ``apply`` and 7,800 ``bwd_reduce`` launches, its time, peak memory, ratio
+   to phase 4's step and the busy share of 8 traced chunks. (d) ``hyp=fb1
+   analysis=full`` through ``training.train``, one full-width bf16 step:
+   params and running stats bitwise those of the step without analysis,
+   every entry recorded, exact launches, the step and the analysis timed
+   apart. (e) The flatness walk at (b)'s cut: its steps and the seconds an
+   evaluation.
 
 The last lines are the card line, a JSON object of per-kernel numbers (their
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` sum the 20 BN layers of
@@ -145,8 +161,9 @@ layer alone; ``launches`` counts phase 4, ``launches_gradreg`` phase 7,
 ``launches_sgd`` phase 8c, ``launches_fb_shuffle`` phase 8d,
 ``launches_baked`` phase 9b, ``launches_dist`` phase 10a,
 ``launches_tinyimagenet`` 11a, ``launches_streamed`` 11b,
-``launches_imagenet`` 11c, ``launches_zoo`` 12a and ``launches_families``
-13a-13d; ``family_shapes`` holds 13e's rows), and ``{"ok": true,
+``launches_imagenet`` 11c, ``launches_zoo`` 12a, ``launches_families``
+13a-13d and ``launches_analysis`` 14c; ``family_shapes`` holds 13e's rows),
+and ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -160,6 +177,7 @@ import socket
 import subprocess
 import sys
 import time
+from collections import defaultdict
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -625,6 +643,31 @@ BN_KERNEL_NAMES = ("stats_partial", "bwd_reduce_partial", "finalize_partials", "
 CONV_NAMES = ("conv", "gemm", "sm90", "cutlass", "xmma", "cudnn", "implicit", "winograd")
 
 
+def device_time(prof):
+    """``(kernels, h2d_ms, total_ms, by_class_ms)`` of a ``torch.profiler``
+    run: ``(name, device ms, count)`` of each device kernel, the pinned
+    host-to-device copies (a side stream's), the device time less those, and
+    that time split into the BN kernels, the convolutions and the rest."""
+    from torch.autograd import DeviceType
+
+    kernels = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA]
+    h2d_ms = sum(t for name, t, _ in kernels if name.startswith("Memcpy HtoD (Pinned"))
+    total = sum(t for _, t, _ in kernels) - h2d_ms
+    classes = {"bn kernels": 0.0, "convolutions": 0.0, "other": 0.0}
+    for name, t, _ in kernels:
+        low = name.lower()
+        if name.startswith("Memcpy HtoD (Pinned"):
+            continue
+        if any(k in name for k in BN_KERNEL_NAMES):
+            classes["bn kernels"] += t
+        elif any(k in low for k in CONV_NAMES):
+            classes["convolutions"] += t
+        else:
+            classes["other"] += t
+    return kernels, h2d_ms, total, classes
+
+
 def phase_profile(torch, hyp="fb1", extra=(), base=FULL_WIDTH, wall_ms=None, warm_up=True,
                   bundle=None):
     """One step of ``base`` (full width) under torch.profiler, after a
@@ -636,7 +679,6 @@ def phase_profile(torch, hyp="fb1", extra=(), base=FULL_WIDTH, wall_ms=None, war
     on a side stream and are left out of the share and timed apart,
     ``h2d_ms``); peak memory over the steps. A stochastic recipe's step is
     its epoch of SGD updates."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from fullbatchtraining_tpu_torch.data import construct_databundle
@@ -671,24 +713,10 @@ def phase_profile(torch, hyp="fb1", extra=(), base=FULL_WIDTH, wall_ms=None, war
         step()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.time() - t0)
-    kernels = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
-               if getattr(e, "device_type", None) == DeviceType.CUDA]
-    h2d_ms = sum(t for name, t, _ in kernels if name.startswith("Memcpy HtoD (Pinned"))
-    total = sum(t for _, t, _ in kernels) - h2d_ms
+    kernels, h2d_ms, total, classes = device_time(prof)
     if not total:
         log("  the profiler recorded no device time")
         return None
-    classes = {"bn kernels": 0.0, "convolutions": 0.0, "other": 0.0}
-    for name, t, _ in kernels:
-        low = name.lower()
-        if name.startswith("Memcpy HtoD (Pinned"):
-            continue
-        if any(k in name for k in BN_KERNEL_NAMES):
-            classes["bn kernels"] += t
-        elif any(k in low for k in CONV_NAMES):
-            classes["convolutions"] += t
-        else:
-            classes["other"] += t
     result = {"wall_ms": wall_ms, "traced_wall_ms": traced_ms, "device_ms": total,
               "busy_share": total / wall_ms, "by_class_ms": classes, "h2d_ms": h2d_ms,
               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -2324,6 +2352,372 @@ def phase_family_bf16(torch, bn):
             for name, extra in FAMILY_BF16.items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: analysis
+# ---------------------------------------------------------------------------
+
+# the sweep's configuration: float32 (as the sweep always runs), chunks of
+# 128 (data.batch_size=128, internal_batch_size_chunks=1), the sweep alone
+ANALYSIS = ["hyp.warmup=0", "hyp.steps=1", "data.batch_size=128", "hyp.sub_batch=128",
+            "impl.mixed_precision=False", "analysis=full", "analysis.compute_gradient_SNR=True",
+            "analysis.compute_gradient_noise_scale=True", "analysis.measure_grad_norm=False",
+            "analysis.check_momentum=False"]
+ANALYSIS_CUT = ["data.size=4096"]                  # 14b, 14e: 32 chunks of 128
+ANALYSIS_GRADS = ["analysis.measure_grad_norm=True", "analysis.check_momentum=True"]
+ANALYSIS_STREAMED = ["impl.hbm_epoch_max_bytes=4194304"]   # 2 blocks a segment, 16 segments
+ANALYSIS_FULL = ["data.size=50_000"]               # 14c: 390 chunks of 128
+ANALYSIS_PROFILED = ["data.size=1024"]             # 14c's profile: 8 chunks
+ANALYSIS_CHUNKS = 390
+FLATNESS = ["analysis.compute_flatness=True", "analysis.flatness_threshold=3.0",
+            "analysis.flatness_step_size=0.5"]
+# 14b holds these, kernels against plain versions, at phase 3's gradient-norm
+# tolerance (relative; the cosine analysis_momentum_sim absolute)
+ANALYSIS_TOL = 1e-4
+ANALYSIS_HELD = ("analysis_grad_norm", "analysis_momentum_dist", "analysis_momentum_sim",
+                 "analysis_grad_SNR", "analysis_grad_noise_scale", "analysis_grad_mean_norm",
+                 "analysis_grad_std_norm")
+
+
+def phase_bn_eval(torch, bn, chunk=128, stages=STAGES):
+    """14a: ``BNEval`` (eval-mode BatchNorm from running stats) forward and
+    backward on the kernels against the same Function on the plain versions,
+    at ResNet-18's stage shapes for a chunk of ``chunk`` images, float32 and
+    bfloat16, with phase 2's tolerances per output (``y``, ``dx``: 2 ulp of
+    their terms; ``dscale``, ``dbias``: ``SUM_TOL`` of their sums' terms).
+    Launches: exactly one ``apply`` for a forward without grad; one more
+    ``apply`` and one ``bwd_reduce`` for the backward. Times: the kernels'
+    forward and backward, the plain versions', the bound (6 bytes an element
+    of x: x, y, dy, dx once, x and dy once more for ``bwd_reduce``) and
+    eval-mode ``F.batch_norm`` forward and backward."""
+    import torch.nn.functional as F
+
+    rows = []
+    dev = torch.device(DEVICE)
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        for hw, c in stages:
+            m = chunk * hw
+            g = torch.Generator(device=dev).manual_seed(hw + c)
+            x = (torch.randn((m, c), generator=g, device=dev) * 1.5 + 0.3).to(dtype)
+            dy = torch.randn((m, c), generator=g, device=dev).to(dtype)
+            scale = torch.randn(c, generator=g, device=dev) * 0.5 + 1
+            bias = torch.randn(c, generator=g, device=dev)
+            mean = torch.randn(c, generator=g, device=dev) * 0.3
+            var = torch.rand(c, generator=g, device=dev) * 1.5 + 0.5
+            leaves = [t.detach().requires_grad_() for t in (x, scale, bias)]
+
+            def run(leaves=leaves, mean=mean, var=var, dy=dy):
+                y = bn.bn_eval(*leaves, mean, var)
+                return (y, *torch.autograd.grad(y, leaves, dy))
+
+            bn.reset_counts()
+            with torch.no_grad():
+                bn.bn_eval(x, scale, bias, mean, var)
+            forward = dict(bn.launches)
+            bn.reset_counts()
+            outs = run()
+            torch.cuda.synchronize()
+            both, wide = dict(bn.launches), dict(bn.vector_launches)
+            with bn.plain_versions():
+                refs = run()
+                plain_ms = cuda_ms(torch, run, iters=10)
+            check(bn.launches == both, "plain_versions() launched kernels")
+            invstd = torch.rsqrt(var + 1e-5)
+            a, b = scale * invstd, bias - mean * scale * invstd
+            xf, dyf = x.float(), dy.float()
+            sizes = [(xf * a).abs() + b.abs() + refs[0].float().abs(),
+                     (dyf * a).abs() + refs[1].float().abs(),
+                     invstd * ((dyf * xf).abs().sum(0) + mean.abs() * dyf.abs().sum(0)),
+                     dyf.abs().sum(0)]
+            tols = [2 * ULP[dtype_name]] * 2 + [SUM_TOL] * 2
+            rel = [((o.double() - r.double()).abs() / size.double().clamp_min(1e-30))
+                   .max().item() for o, r, size in zip(outs, refs, sizes)]
+            xl = x.view(chunk, math.isqrt(hw), math.isqrt(hw), c).permute(0, 3, 1, 2)
+            dyl = dy.view(xl.shape[0], *xl.shape[2:], c).permute(0, 3, 1, 2)
+            lib_leaves = [xl.detach().requires_grad_(), leaves[1], leaves[2]]
+
+            def library(lib_leaves=lib_leaves, mean=mean, var=var, dyl=dyl):
+                y = F.batch_norm(lib_leaves[0], mean, var, lib_leaves[1], lib_leaves[2],
+                                 training=False, eps=1e-5)
+                return torch.autograd.grad(y, lib_leaves, dyl)
+
+            row = {"dtype": dtype_name, "images": chunk, "m": m, "c": c,
+                   "forward_launches": forward, "launches": both, "wide_launches": wide,
+                   "max_abs_err": max((o.double() - r.double()).abs().max().item()
+                                      for o, r in zip(outs, refs)),
+                   "max_rel_err": dict(zip(("y", "dx", "dscale", "dbias"), rel)),
+                   "ms": cuda_ms(torch, run, iters=10), "plain_ms": plain_ms,
+                   "library_ms": cuda_ms(torch, library, iters=10),
+                   "bound_ms": 1e3 * 6 * m * c * x.element_size() / HBM_BYTES_PER_S}
+            rows.append(row)
+            log(f"  bn_eval {dtype_name:8s} M={m:8d} C={c:3d} rel errs (y, dx, dscale, dbias) "
+                f"{[f'{e:.1e}' for e in rel]} (tol {tols}); forward launches {forward}, "
+                f"forward+backward {both} (16 B {wide}); kernels {row['ms']:.4f} ms  plain "
+                f"{plain_ms:.4f} ms  F.batch_norm {row['library_ms']:.4f} ms  bound "
+                f"{row['bound_ms']:.4f} ms")
+            check(all(e <= t for e, t in zip(rel, tols)),
+                  f"BNEval {dtype_name} M={m} C={c} disagrees with its plain version")
+            check(forward == {"stats": 0, "apply": 1, "bwd_reduce": 0, "bwd_apply": 0},
+                  f"BNEval forward launched {forward}")
+            check(both == {"stats": 0, "apply": 2, "bwd_reduce": 1, "bwd_apply": 0},
+                  f"BNEval forward and backward launched {both}")
+            check(wide == both, f"BNEval launches {both}, of them at 16 bytes {wide}")
+            del x, dy, leaves, outs, refs, sizes, lib_leaves
+            torch.cuda.empty_cache()
+    return rows
+
+
+def analysis_setup(torch, extra, bundle=None):
+    """``(trainer, state, bundle)`` of ``ANALYSIS + extra`` at its seeded
+    full-width weights, as ``training.train`` builds them, the running stats
+    calibrated by train-mode forwards (no grad) over the first 32 chunks of
+    the epoch, and SGD momentum buffers drawn from a seeded generator."""
+    from fullbatchtraining_tpu_torch.data import construct_databundle
+    from fullbatchtraining_tpu_torch.models import construct_model
+    from fullbatchtraining_tpu_torch.training import training
+
+    cfg = main_path_config(ANALYSIS + list(extra))
+    if bundle is None:
+        bundle = construct_databundle(cfg.data, cfg.impl, cfg.hyp, seed=cfg.seed, device=DEVICE)
+    model = construct_model(cfg.model, bundle.channels, bundle.classes, seed=cfg.seed)
+    training.configure_backends(cfg)
+    trainer = training.Trainer(model, bundle, cfg, torch.device(DEVICE))
+    with torch.no_grad():
+        for start, images, _ in trainer.segments(*trainer.stage(0)):
+            for chunk in images[:max(32 - start, 0)]:
+                model(trainer._normalize(chunk))
+    optimizer = training.make_optimizer(model, cfg.hyp)
+    g = torch.Generator().manual_seed(3)
+    for p in model.parameters():
+        optimizer.state[p]["momentum_buffer"] = (0.01 * torch.randn(p.shape, generator=g)).to(p)
+    return trainer, training.TrainState(step=0, model=model, optimizer=optimizer), bundle
+
+
+def timed_analyze(torch, trainer, state):
+    """``analyze`` of ``state`` into fresh stats, and its seconds."""
+    from fullbatchtraining_tpu_torch.analysis import analyze
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    stats = analyze(trainer, state, defaultdict(list))
+    torch.cuda.synchronize()
+    return stats, time.time() - t0
+
+
+def sweep_launches(chunks):
+    """Each kernel's launches in a sweep of ``chunks`` chunks: an ``apply``
+    each BatchNorm forward and backward, a ``bwd_reduce`` backward."""
+    return {"stats": 0, "apply": 2 * BN_LAYERS * chunks, "bwd_reduce": BN_LAYERS * chunks,
+            "bwd_apply": 0}
+
+
+def phase_analysis_plain(torch, bn):
+    """14b: ``analyze`` at full width on ``ANALYSIS_CUT`` (32 chunks of 128,
+    float32), with the pre-step gradient and momentum measures, on the
+    kernels and under ``plain_versions()``: the ``ANALYSIS_HELD`` entries
+    and every per-batch norm within ``ANALYSIS_TOL``; launches exactly one
+    full-batch pass's and the sweep's. The same with the epoch streamed
+    from the host (``ANALYSIS_STREAMED``): every entry bitwise the resident
+    one. Returns the result and the bundle."""
+    runs, bundle = {}, None
+    for name, extra in (("kernels", []), ("plain", []), ("streamed", ANALYSIS_STREAMED)):
+        trainer, state, bundle = analysis_setup(torch, ANALYSIS_CUT + ANALYSIS_GRADS + extra,
+                                                bundle)
+        bn.reset_counts()
+        if name == "plain":
+            with bn.plain_versions():
+                stats, seconds = timed_analyze(torch, trainer, state)
+        else:
+            stats, seconds = timed_analyze(torch, trainer, state)
+        runs[name] = {"stats": dict(stats), "launches": dict(bn.launches), "s": seconds}
+        log(f"  {name}: {seconds:.3f} s, launches {runs[name]['launches']}")
+        del trainer, state
+    ours, plain, streamed = (runs[k]["stats"] for k in ("kernels", "plain", "streamed"))
+    chunks = len(bundle.train) // bundle.batch_size
+    expected = {k: v + BN_LAYERS * chunks for k, v in sweep_launches(chunks).items()}
+    gaps = {}
+    for key in sorted(plain):
+        a, b = ours[key][0], plain[key][0]
+        gaps[key] = abs(a - b) / (1 if key == "analysis_momentum_sim" else abs(b))
+    held = {k: g for k, g in gaps.items() if k in ANALYSIS_HELD or "grad_norm_" in k}
+    worst = max(held, key=held.get)
+    log(f"  kernels against plain: {len(gaps)} entries, the held ones within "
+        f"{held[worst]:.2e} (worst {worst}; tol {ANALYSIS_TOL:g}); all gaps "
+        + ", ".join(f"{k} {v:.1e}" for k, v in gaps.items() if "grad_norm_" not in k))
+    log("  values (kernels): " + ", ".join(f"{k} {v[0]:.6g}" for k, v in sorted(ours.items())
+                                           if "grad_norm_" not in k))
+    differ = [k for k in ours if ours[k] != streamed.get(k)]
+    log(f"  streamed against resident: {len(differ)} of {len(ours)} entries differ")
+    check(ours.keys() == plain.keys() == streamed.keys(), "the runs recorded other entries")
+    check(sum("grad_norm_" in k for k in ours) == chunks, "not one per-batch norm a chunk")
+    check(held[worst] <= ANALYSIS_TOL, f"{worst} differs between kernels and plain versions")
+    check(runs["kernels"]["launches"] == expected,
+          f"launches {runs['kernels']['launches']}, expected {expected}")
+    check(runs["plain"]["launches"] == dict.fromkeys(expected, 0),
+          "plain_versions() launched kernels")
+    check(not differ, f"the streamed sweep differs from the resident one: {differ[:5]}")
+    check(all(map(math.isfinite, (v[0] for v in ours.values()))), "non-finite analysis entry")
+    return {"kernels_s": runs["kernels"]["s"], "plain_s": runs["plain"]["s"],
+            "streamed_s": runs["streamed"]["s"], "gaps": gaps, "launches": expected,
+            "values": {k: v[0] for k, v in ours.items()}}, bundle
+
+
+def phase_analysis_sweep(torch, bn, fb1):
+    """14c: the sweep over all 50,000 images (390 chunks of 128, float32)
+    through ``analyze``, counts set to 0 just before it: exactly 15,600
+    ``apply`` and 7,800 ``bwd_reduce`` launches, all at 16 bytes; its
+    seconds, ms a chunk, peak memory and ratio to phase 4's warm step; then
+    the busy share of a sweep of 8 chunks under ``torch.profiler`` (its
+    device time over the wall time of the same sweep untraced)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fullbatchtraining_tpu_torch.analysis.analysis import gradient_sweep
+
+    trainer, state, _ = analysis_setup(torch, ANALYSIS_FULL)
+    torch.cuda.reset_peak_memory_stats()
+    bn.reset_counts()
+    stats, seconds = timed_analyze(torch, trainer, state)
+    counts, wide = dict(bn.launches), dict(bn.vector_launches)
+    expected = sweep_launches(ANALYSIS_CHUNKS)
+    norms = [v[0] for k, v in stats.items() if "grad_norm_" in k]
+    result = {"s": seconds, "ms_per_chunk": 1e3 * seconds / ANALYSIS_CHUNKS,
+              "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "launches": counts, "wide_launches": wide,
+              "ratio_to_fb1_step": seconds / fb1["step_s"][-1],
+              "snr": stats["analysis_grad_SNR"][0],
+              "noise_scale": stats["analysis_grad_noise_scale"][0]}
+    log(f"  sweep {seconds:.3f} s, {result['ms_per_chunk']:.2f} ms a chunk of 128, "
+        f"{result['ratio_to_fb1_step']:.2f}x phase 4's warm step ({fb1['step_s'][-1]:.3f} s); "
+        f"peak {result['peak_memory_gib']:.2f} GiB; launches {counts} (16 B {wide}); SNR "
+        f"{result['snr']:.4g}, noise scale {result['noise_scale']:.4g}")
+    check(counts == expected, f"sweep launches {counts}, expected {expected}")
+    check(wide == counts, "a sweep launch took narrow accesses")
+    check(len(norms) == ANALYSIS_CHUNKS and all(map(math.isfinite, norms)),
+          f"{len(norms)} per-batch norms, or not all finite")
+    del trainer, state, stats
+
+    trainer, state, _ = analysis_setup(torch, ANALYSIS_PROFILED)
+
+    def sweep():
+        gradient_sweep(trainer, state.model)
+        torch.cuda.synchronize()
+
+    sweep()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sweep()
+    t0 = time.time()
+    sweep()
+    wall_ms = 1e3 * (time.time() - t0)
+    kernels, _, total, classes = device_time(prof)
+    result["profile"] = {"chunks": 8, "wall_ms": wall_ms, "device_ms": total,
+                         "busy_share": total / wall_ms if total else None,
+                         "by_class_ms": classes,
+                         "top": sorted(kernels, key=lambda k: -k[1])[:8]}
+    log(f"  8 chunks: wall {wall_ms:.1f} ms untraced, device {total:.1f} ms traced, busy "
+        f"share {result['profile']['busy_share']}; "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in classes.items()))
+    del trainer, state
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_analysis_train(torch, bn):
+    """14d: ``training.train`` with ``hyp=fb1 analysis=full``, one
+    full-width bf16 step (phase 4's configuration), against the same step
+    without analysis: params and running stats bitwise equal (the pre-step
+    pass moved nothing); every ``analysis=full`` entry recorded; launches
+    exactly twice the step's pass (the pre-step pass) plus the sweep's
+    (chunks of 2048, float32); the step, the pre-step pass and ``analyze``
+    timed apart."""
+    import fullbatchtraining_tpu_torch.analysis as analysis_pkg
+    from fullbatchtraining_tpu_torch.training import training
+
+    base = FULL_WIDTH + ["hyp.steps=1"]
+    bn.reset_counts()
+    _, bundle, _, ref_state, ref_stats = run_main_path(torch, base)
+    ref = {k: v.clone() for k, v in ref_state.model.state_dict().items()}
+    ref_counts = dict(bn.launches)
+    del ref_state
+    times = {"analyze": [], "pre_step": []}
+    real_analyze, real_pre = analysis_pkg.analyze, training.Trainer.pre_step_gradient
+
+    def timed(fn, key):
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            times[key].append(time.time() - t0)
+            return out
+        return wrapped
+
+    analysis_pkg.analyze = timed(real_analyze, "analyze")
+    training.Trainer.pre_step_gradient = timed(real_pre, "pre_step")
+    try:
+        bn.reset_counts()
+        cfg, _, _, state, stats = run_main_path(torch, base + ["analysis=full"], bundle=bundle)
+    finally:
+        analysis_pkg.analyze, training.Trainer.pre_step_gradient = real_analyze, real_pre
+    counts = dict(bn.launches)
+    ours = state.model.state_dict()
+    differ = [k for k in ref if not torch.equal(ours[k], ref[k])]
+    # the step's chunks and the sweep's (internal_batch_size_chunks=1) are
+    # the same blocks of 2048; the pre-step pass is one more full-batch
+    # pass: the step's launches again, less the evaluation's applies
+    sweep_chunks = len(bundle.train) // bundle.batch_size
+    pre_step = dict(ref_counts, apply=BN_LAYERS * sweep_chunks)
+    expected = {k: ref_counts[k] + pre_step[k] + v
+                for k, v in sweep_launches(sweep_chunks).items()}
+    keys = {"analysis_param_norm", "analysis_grad_norm", "analysis_momentum_dist",
+            "analysis_momentum_sim", *(f"analysis_grad_norm_{i}" for i in range(sweep_chunks))}
+    result = {"step_s": stats["train_time"][0], "step_s_without": ref_stats["train_time"][0],
+              "pre_step_s": times["pre_step"], "analyze_s": times["analyze"],
+              "tensors_differ": len(differ), "launches": counts, "expected_launches": expected,
+              "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "values": {k: stats[k][0] for k in sorted(keys) if "grad_norm_" not in k}}
+    log(f"  step with analysis {result['step_s']:.3f} s (its pre-step pass {times['pre_step']} "
+        f"s), without {result['step_s_without']:.3f} s; analyze {times['analyze']} s over "
+        f"{sweep_chunks} chunks of {bundle.batch_size}; {len(differ)} of {len(ref)} tensors "
+        f"differ from the step without analysis; launches {counts} (expected {expected}); "
+        f"{result['values']}")
+    check(not differ, f"the pre-step pass moved {differ[:5]}")
+    check({k for k in stats if k.startswith("analysis_")} == keys,
+          f"analysis entries {sorted(k for k in stats if k.startswith('analysis_'))[:8]}...")
+    check(counts == expected, f"launches {counts}, expected {expected}")
+    del state
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_analysis_flatness(torch, bundle):
+    """14e: the flatness walk at 14b's cut (``analysis.flatness_threshold=3.0
+    analysis.flatness_step_size=0.5``, ``tests/test_analysis.py``'s values):
+    its steps, its value and the seconds an evaluation of the train split."""
+    from fullbatchtraining_tpu_torch.analysis.analysis import flatness
+
+    trainer, state, _ = analysis_setup(torch, ANALYSIS_CUT + FLATNESS, bundle)
+    evals, real = [], trainer.eval_step
+
+    def counted(*args, **kwargs):
+        t0 = time.time()
+        out = real(*args, **kwargs)
+        out["valid_loss"].item()
+        evals.append(time.time() - t0)
+        return out
+
+    trainer.eval_step = counted
+    t0 = time.time()
+    value = flatness(trainer, state)
+    seconds = time.time() - t0
+    result = {"value": value, "steps": len(evals) - 1, "s": seconds,
+              "s_per_eval": sum(evals) / len(evals)}
+    log(f"  flatness {value:.4g} after {result['steps']} steps, {seconds:.3f} s, "
+        f"{result['s_per_eval']:.3f} s an evaluation of {len(bundle.train)} images")
+    check(math.isfinite(value) and value >= 0 and 0 <= result["steps"] < 1000,
+          f"flatness {value} after {result['steps']} steps")
+    return result
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write every measurement to this JSON file")
@@ -2443,6 +2837,18 @@ def main() -> int:
                    + phase_kernels(torch, bn, CHUNK, ODD_WIDTHS))
     phase("[13f] profile of one bf16 PyramidNet-110 chunk of 128")
     fam_profile = phase_family_profile(torch)
+    phase("[14a] BNEval forward and backward against the plain versions (chunk of 128)")
+    bn_eval_rows = phase_bn_eval(torch, bn)
+    phase("[14b] analyze at full width, 32 chunks of 128, float32: kernels against plain "
+          "versions, streamed against resident")
+    analysis_plain, analysis_bundle = phase_analysis_plain(torch, bn)
+    phase("[14c] the analysis sweep: 50,000 images in 390 chunks of 128, float32")
+    analysis_sweep = phase_analysis_sweep(torch, bn, full)
+    phase("[14d] hyp=fb1 analysis=full: one full-width bf16 step, bitwise the step without")
+    analysis_train = phase_analysis_train(torch, bn)
+    phase("[14e] the flatness walk at 14b's cut")
+    analysis_flatness = phase_analysis_flatness(torch, analysis_bundle)
+    del analysis_bundle
     family_runs = [fam_multinode, fam_memeff["plain"], fam_memeff["memory_efficient"],
                    *fam_fp32.values(), *fam_bf16.values()]
 
@@ -2466,6 +2872,7 @@ def main() -> int:
             "launches_imagenet": imagenet["launches"][name],
             "launches_zoo": zoo_lbfgs["launches"][name],
             "launches_families": sum(run["launches"][name] for run in family_runs),
+            "launches_analysis": analysis_sweep["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": "bytes", "library_ms": total("library_ms"),
@@ -2494,7 +2901,9 @@ def main() -> int:
              "zoo_lbfgs": zoo_lbfgs, "zoo_resume": zoo_resume, "zoo_steps": zoo_steps,
              "family_multinode": fam_multinode, "family_memory_efficient": fam_memeff,
              "family_fp32": fam_fp32, "family_bf16": fam_bf16, "family_kernel_rows": family_rows,
-             "family_profile": fam_profile,
+             "family_profile": fam_profile, "bn_eval_rows": bn_eval_rows,
+             "analysis_plain": analysis_plain, "analysis_sweep": analysis_sweep,
+             "analysis_train": analysis_train, "analysis_flatness": analysis_flatness,
              "kernels": kernels, "phase_starts_s": starts}, indent=1, default=str))
     log(f"all phases passed in {time.time() - started:.0f} s; phases started at (s): "
         + ", ".join(f"{k} {v:.0f}" for k, v in starts.items()))

@@ -194,17 +194,12 @@ def ema_(running: torch.Tensor, batch: torch.Tensor, momentum: float, factor: fl
 
 
 def eval_affine(x: torch.Tensor, weight, bias, running_mean, running_var, eps) -> torch.Tensor:
-    """Eval-mode BatchNorm of NCHW ``x`` from running stats: the ``apply``
-    kernel with ``a``, ``b`` folded in ``stat_dtype``; not differentiable."""
-    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
-        raise RuntimeError("eval-mode BatchNorm is not differentiable; "
-                           "call it under torch.no_grad()")
-    rows = x.permute(0, 2, 3, 1)
-    acc = bn_ops.stat_dtype(x.dtype)
-    a = weight.to(acc) * torch.rsqrt(running_var.to(acc) + eps)
-    b = bias.to(acc) - running_mean.to(acc) * a
-    flat = bn_ops.apply(bn_ops.as_rows(rows), torch.stack([a, b]))
-    return flat.view(rows.shape).permute(0, 3, 1, 2)
+    """Eval-mode BatchNorm of NCHW ``x`` from running stats
+    (``ops.bn.bn_eval``: the ``apply`` kernel with ``a``, ``b`` folded in
+    ``stat_dtype``), differentiable in ``x``, ``weight`` and ``bias``."""
+    rows = x.permute(0, 2, 3, 1)  # NHWC: contiguous when x is channels_last
+    y = bn_ops.bn_eval(rows, weight, bias, running_mean, running_var, eps)
+    return y.permute(0, 3, 1, 2)
 
 
 class BatchNorm2d(nn.Module):
@@ -218,8 +213,8 @@ class BatchNorm2d(nn.Module):
     * bfloat16 inputs see ``weight``/``bias`` rounded to bfloat16 first.
 
     Train mode runs ``ops.bn.bn_train``; eval mode runs the ``apply`` kernel
-    with ``a``, ``b`` folded from the running stats and is not
-    differentiable (call it under ``torch.no_grad()``). ``jax_inner="bn"``
+    with ``a``, ``b`` folded from the running stats (:func:`eval_affine`),
+    differentiable through ``apply`` and ``bwd_reduce``. ``jax_inner="bn"``
     is the JAX ``BatchNorm2d`` wrapper; None is a bare ``_TorchBatchNorm``
     (PyramidNet's).
     """

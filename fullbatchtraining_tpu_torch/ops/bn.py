@@ -27,7 +27,9 @@ BatchNorm, ``_TorchBatchNorm.stat_dtype``).
 
 ``BNTrain`` runs its backward through ``BNTrainBackward``, so it can be
 differentiated twice; that double backward is plain PyTorch and counts its
-calls in ``double_backward_calls``.
+calls in ``double_backward_calls``. ``BNEval``, the eval-mode BatchNorm
+from running stats, runs ``apply`` forward and ``apply`` and ``bwd_reduce``
+backward.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ import ctypes
 import functools
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _build
 
@@ -354,6 +357,50 @@ class BNTrainBackward(torch.autograd.Function):
 def bn_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5):
     """Train-mode batch norm of ``x [..., C]``: ``(y, mean, biased var)``."""
     return BNTrain.apply(x, scale, bias, eps)
+
+
+class BNEval(torch.autograd.Function):
+    """Eval-mode batch norm of ``x [..., C]`` from running statistics:
+    ``y = a*x + b`` with ``a = scale * rsqrt(var + eps)`` and ``b = bias -
+    mean * a`` folded in ``stat_dtype``, one ``apply`` launch. Differentiable
+    in x, scale and bias (the running stats are constants): ``dx = a*dy`` is
+    ``apply`` with ``[a, 0]``, and ``(sum dy, sum dy*x)`` from ``bwd_reduce``
+    give ``dbias = sum dy`` and ``dscale = rsqrt(var + eps) * (sum dy*x -
+    mean * sum dy)``. The backward is not differentiated again."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, x, scale, bias, mean, var, eps: float):
+        x2 = as_rows(x)
+        acc = stat_dtype(x.dtype)
+        invstd = torch.rsqrt(var.to(acc) + eps)
+        a = scale.to(acc) * invstd
+        mean = mean.to(acc)
+        y = apply(x2, torch.stack([a, bias.to(acc) - mean * a]))
+        ctx.save_for_backward(x2, mean, invstd, a)
+        ctx.shape, ctx.dtype = x.shape, scale.dtype
+        return y.view(x.shape)
+
+    @staticmethod
+    @once_differentiable
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, dy):
+        x2, mean, invstd, a = ctx.saved_tensors
+        dy2 = as_rows(dy.to(x2.dtype))
+        dx = dscale = dbias = None
+        if ctx.needs_input_grad[0]:
+            dx = apply(dy2, torch.stack([a, torch.zeros_like(a)])).view(ctx.shape)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            sums = bwd_reduce(dy2, x2)
+            dscale = (invstd * (sums[1] - mean * sums[0])).to(ctx.dtype)
+            dbias = sums[0].to(ctx.dtype)
+        return dx, dscale, dbias, None, None, None
+
+
+def bn_eval(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
+            var: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Eval-mode batch norm of ``x [..., C]`` from running ``mean`` and ``var``."""
+    return BNEval.apply(x, scale, bias, mean, var, eps)
 
 
 def bn_train_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

@@ -58,6 +58,12 @@ seed, so they see the first pass's masks, as the JAX package hands them the
 chunk's key. ``impl.mixed_precision`` runs
 the forward under bf16 autocast with fp32 parameters and accumulators;
 logits are cast to the stat dtype.
+
+With ``analysis.type`` set, a step after which analysis is due and reads
+gradients first takes :meth:`Trainer.pre_step_gradient`, the gradient that
+produces the step, in a pass that leaves the running stats as they were;
+:func:`~..analysis.analyze` runs after the validation and again at the
+``hyp.stop_at_full_training_accuracy`` stop, as in the JAX loop.
 """
 
 from __future__ import annotations
@@ -112,7 +118,6 @@ def check_slice(cfg) -> None:
     """Raise for modes the port does not run yet, naming their ROADMAP item."""
     hyp = cfg.hyp
     missing = [
-        (cfg.analysis.type is not None, "analysis.type", "Analysis"),
         (cfg.analysis.save_model_every_nth_step is not None,
          "analysis.save_model_every_nth_step", "Loss landscape and tools"),
         (cfg.impl.get("trace", False), "impl.trace", "Profiler trace"),
@@ -157,8 +162,9 @@ def upload_rows(images, rows: np.ndarray, device, piece: int) -> torch.Tensor:
 
 
 def stage_validation(bundle: DataBundle, batch: int, device, dryrun: bool = False,
-                     world: World | None = None, cfg_impl=None):
-    """This rank's part of the validation set: the set padded to a
+                     world: World | None = None, cfg_impl=None, split=None):
+    """This rank's part of the validation set (or of ``split``, another
+    split of the bundle: flatness reads the train set): the set padded to a
     ``(blocks, W, batch)`` grid (``ceil(n / W)`` samples a rank in whole
     blocks of ``batch``) with per-sample weights, 0 on padding, and
     ``[:, rank]`` of it. Labels and weights go to ``device``; the images
@@ -167,7 +173,8 @@ def stage_validation(bundle: DataBundle, batch: int, device, dryrun: bool = Fals
     :class:`HostRows` of a block a row, which :meth:`Trainer.eval_step`
     streams."""
     world = world if world is not None else World()
-    images, labels = bundle.valid.images, bundle.valid.labels
+    split = bundle.valid if split is None else split
+    images, labels = split.images, split.labels
     n, ranks = len(images), world.size
     per_rank = -(-n // ranks)
     blocks = 1 if dryrun else -(-per_rank // batch)
@@ -579,6 +586,19 @@ class Trainer:
                                               metrics)
         return grads, metrics, sq_norms
 
+    def pre_step_gradient(self, state: TrainState, images, labels):
+        """:meth:`gradient_eval` at the step's params for analysis, taken
+        before the step: every buffer of the model is as it was after it,
+        and the step's generators are seeded afresh, so the step that
+        follows is the one it would be without this pass."""
+        buffers = list(state.model.buffers())
+        saved = [b.detach().clone() for b in buffers]
+        grads, _, _ = self.gradient_eval(state, images, labels)
+        with torch.no_grad():
+            for b, value in zip(buffers, saved):
+                b.copy_(value)
+        return grads
+
     def sgd_update(self, optimizer, grads, lr) -> None:
         for group in optimizer.param_groups:
             group["lr"] = lr
@@ -912,6 +932,11 @@ def _train_loop(trainer: Trainer, state: TrainState, bundle: DataBundle, cfg, wr
     stochastic_closure = make_stochastic_closure_step(driver) if driver is not None else None
     val_data = stage_validation(bundle, bundle.batch_size, trainer.device, dryrun=cfg.dryrun,
                                 world=trainer.world, cfg_impl=cfg.impl)
+    analysis = cfg.analysis
+    if analysis.type is not None:
+        from ..analysis import analyze
+    reads_grads = analysis.type is not None and (analysis.get("measure_grad_norm", False)
+                                                 or analysis.get("check_momentum", False))
     while state.step < hyp.steps:
         t0 = time.time()
         # the configured mode before hyp.train_switch_stochastic, the other
@@ -920,6 +945,12 @@ def _train_loop(trainer: Trainer, state: TrainState, bundle: DataBundle, cfg, wr
         if hyp.train_switch_stochastic is not None and state.step >= hyp.train_switch_stochastic:
             stochastic = not hyp.train_stochastic
         images, labels = trainer.stage(state.step)
+        # analysis reads the gradient that produced the step, so it is
+        # taken before the step when analysis is due after it
+        grads = None
+        if reads_grads and ((state.step + 1) % analysis.check_every_nth_step == 0
+                            or state.step + 1 >= hyp.steps or cfg.dryrun):
+            grads = trainer.pre_step_gradient(state, images, labels)
         if stochastic and (driver is None or trainer.sam_rho is not None):
             # SAM's stochastic epoch stays the fused one, as in the JAX package
             metrics = trainer.stochastic_step(state, images, labels)
@@ -953,6 +984,10 @@ def _train_loop(trainer: Trainer, state: TrainState, bundle: DataBundle, cfg, wr
 
         log.info(status_message(stats, step))
 
+        if analysis.type is not None and (step % analysis.check_every_nth_step == 0
+                                          or step >= hyp.steps or cfg.dryrun):
+            analyze(trainer, state, stats, grads=grads)
+
         # every rank reads the same reduced metrics, so all take one branch
         if not np.isfinite(stats["train_loss"][-1]):
             log.info("Terminating iterations due to divergence of loss...")
@@ -964,6 +999,8 @@ def _train_loop(trainer: Trainer, state: TrainState, bundle: DataBundle, cfg, wr
                 vm = _to_host(trainer.eval_step(eval_model, *val_data))
                 stats["valid_loss"] += [vm["valid_loss"]]
                 stats["valid_acc"] += [vm["valid_acc"]]
+                if analysis.type is not None:
+                    analyze(trainer, state, stats, grads=grads)
                 break
         if cfg.impl.checkpoint.name is not None and (
                 (step - 1) % cfg.impl.checkpoint.save_every_nth_step == 0 or step >= hyp.steps):

@@ -112,16 +112,20 @@ def test_cli_dryrun_default_recipe(tmp_path):
 
 
 BOUNDARIES = {
-    "analysis": ["analysis=full"],
+    "model-snapshots": ["analysis=full", "analysis.save_model_every_nth_step=1"],
     "trace": ["impl.trace=True"],
     "float16-compute": ["impl.compute_dtype=float16"],
     "float16-params": ["impl.dtype=float16"],
 }
+# the item a refusal must name, where it is known
+BOUNDARY_ITEMS = {"model-snapshots": "Loss landscape and tools"}
 # full-width families run their dryrun step on blocks of 16 images
 SMALL_BLOCK = ["data.batch_size=16"]
 # modes that raised until the streamed epochs, other datasets, the optimizer
-# zoo and the other model families and norms came in
+# zoo, the other model families and norms and analysis came in
 FORMER_BOUNDARIES = {
+    "analysis": ["analysis=full", "analysis.compute_gradient_SNR=True",
+                 "analysis.compute_gradient_noise_scale=True", "analysis.compute_flatness=True"],
     "lars": ["hyp/optim_modification=LARS"],
     "larc": ["hyp/optim_modification=LARC"],
     "fista": ["hyp/optim=fista"],
@@ -167,6 +171,7 @@ def test_modes_outside_the_slice_raise(case, config_dir):
     item = re.search(r"ROADMAP\.md, '([^']+)'", str(err.value))
     assert item, str(err.value)
     assert f"**{item.group(1)}" in (ROOT / "ROADMAP.md").read_text(), item.group(1)
+    assert item.group(1) == BOUNDARY_ITEMS.get(case, item.group(1))
 
 
 @pytest.mark.parametrize("case", list(FORMER_BOUNDARIES))

@@ -12,7 +12,8 @@ of 128 ImageNet images. Every kernel also runs at the edges of its two widths (1
 thread, or one element): a channel count below, across and above one
 256-thread block's row, one that no 16-byte group divides, one row, a ragged
 row count, and an operand 1 element off 16-byte alignment; the reductions
-must be bitwise repeatable at each. Tolerances,
+must be bitwise repeatable at each. BNEval, the eval-mode BatchNorm, is held
+against its plain versions. Tolerances,
 relative to the size of the terms summed: float32 sums 1e-5 and
 bfloat16-input sums 1e-5 (float32 accumulation in another order), float64
 1e-12; elementwise outputs 2 ulp of the output dtype (an FMA may round once
@@ -136,6 +137,32 @@ def test_bn_train_matches_reference(cuda, dtype):
     grads_ref = torch.autograd.grad(refs[0], (x, scale, bias), cot)
     for g, r in zip(grads, grads_ref):
         torch.testing.assert_close(g, r, rtol=tol, atol=tol * r.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+def test_bn_eval_matches_plain(cuda, dtype):
+    """BNEval (eval-mode BatchNorm from running stats) on the kernels against
+    the same Function under ``plain_versions()``: one ``apply`` forward, one
+    ``apply`` and one ``bwd_reduce`` backward."""
+    x = _data((4, 16, 16, 64), dtype, cuda, 10).requires_grad_()
+    scale = _coef(1, 64, dtype, cuda, 11)[0].add(1.0).requires_grad_()
+    bias = _coef(1, 64, dtype, cuda, 12)[0].requires_grad_()
+    mean = _coef(1, 64, dtype, cuda, 13)[0]
+    var = _coef(1, 64, dtype, cuda, 14)[0].abs().add(0.5)
+    cot = _data((4, 16, 16, 64), dtype, cuda, 15)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+
+    def run():
+        y = bn.bn_eval(x, scale, bias, mean, var)
+        return (y, *torch.autograd.grad(y, (x, scale, bias), cot))
+
+    bn.reset_counts()
+    outs = run()
+    assert bn.launches == {"stats": 0, "apply": 2, "bwd_reduce": 1, "bwd_apply": 0}
+    with bn.plain_versions():
+        refs = run()
+    for o, r in zip(outs, refs):
+        torch.testing.assert_close(o, r, rtol=tol, atol=tol * r.abs().max().item())
 
 
 def test_wrong_input_raises(cuda):
