@@ -153,6 +153,27 @@ Phases, in order; any failure exits non-zero before the result lines:
    every entry recorded, exact launches, the step and the analysis timed
    apart. (e) The flatness walk at (b)'s cut: its steps and the seconds an
    evaluation.
+15. The loss landscape and the tools. (a) A surface at full width
+   (``crunch``, ``hyp=gradreg`` with ``block_strength`` 0.5, bf16, all
+   50,000 images in 24 blocks of 2048, ``viz=1d`` cut to 5 positions, one
+   group), counts set to 0 just before it: exactly positions x blocks x 20
+   BatchNorms x 2 ``apply`` and x 1 ``bwd_reduce``, no ``stats`` or
+   ``bwd_apply``; 5 finite rows with ``full_loss >= train_loss``; seconds a
+   position, their ratio to phase 4's warm step, peak memory. (b) The same
+   in float32 over 4,096 images, ``viz=2d`` at 3x3 in groups of 4: on the
+   kernels against ``plain_versions()`` (loss and full loss within 1e-5
+   relative, accuracy within one image), streamed from the host bitwise the
+   resident surface, and a second call that computes nothing and leaves the
+   results file byte for byte. (c) One phase-4 bf16 ``hyp=fb1`` step with
+   ``analysis.save_model_every_nth_step=1``: every tensor bitwise the same
+   step's without a snapshot, the stored gradients bitwise a
+   ``pre_step_gradient`` from the same initial state; the file's bytes and
+   write seconds. (d) ``verify_model_checkpoint`` on (c)'s checkpoint
+   reproduces (c)'s ``valid_acc`` exactly; ``measure_floating_point_accuracy``
+   at phase 4's configuration under ``impl.deterministic=True`` and
+   ``False``: six finite deviations each. (e) (c)'s trained state to the
+   upstream ``.pth`` 5-tuple and back into a fresh model: every tensor and
+   the model's evaluation on the card bitwise the first.
 
 The last lines are the card line, a JSON object of per-kernel numbers (their
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` sum the 20 BN layers of
@@ -162,7 +183,8 @@ layer alone; ``launches`` counts phase 4, ``launches_gradreg`` phase 7,
 ``launches_baked`` phase 9b, ``launches_dist`` phase 10a,
 ``launches_tinyimagenet`` 11a, ``launches_streamed`` 11b,
 ``launches_imagenet`` 11c, ``launches_zoo`` 12a, ``launches_families``
-13a-13d and ``launches_analysis`` 14c; ``family_shapes`` holds 13e's rows),
+13a-13d, ``launches_analysis`` 14c and ``launches_landscape`` 15a;
+``family_shapes`` holds 13e's rows),
 and ``{"ok": true,
 "device": {...}}``.
 """
@@ -2718,6 +2740,299 @@ def phase_analysis_flatness(torch, bundle):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the loss landscape and the tools
+# ---------------------------------------------------------------------------
+
+SURFACE_DIR = ROOT / "build" / "chip_smoke_surface"
+SURFACE = ["hyp.warmup=0", "data.batch_size=2048", "hyp.sub_batch=2048",
+           "viz.database_name=chip_smoke"]
+SURFACE_FULL = ["data.size=50_000", "impl.mixed_precision=True", "viz=1d",
+                "viz.coordinates.x.num=5", "viz.vmap_positions=5"]           # 15a: one group
+SURFACE_CUT = ["data.size=4096", "impl.mixed_precision=False", "viz=2d",
+               "viz.coordinates.x.num=3", "viz.coordinates.y.num=3",
+               "viz.vmap_positions=4"]                                     # 15b: 3 groups
+SURFACE_STREAMED = ["impl.hbm_epoch_max_bytes=8388608"]                    # a block a segment
+SURFACE_TOL = 1e-5
+SNAPSHOT = ["analysis.save_model_every_nth_step=1", "impl.checkpoint.name=chip_smoke_snap.ckpt"]
+
+
+def surface_setup(torch, extra, folder, bundle=None):
+    """``(trainer, state, bundle)`` of ``hyp=gradreg`` with ``SURFACE +
+    extra`` at its seeded full-width weights, the running stats calibrated
+    by train-mode forwards (no grad) over the first 4 blocks, the store
+    under ``folder``."""
+    from fullbatchtraining_tpu_torch.data import construct_databundle
+    from fullbatchtraining_tpu_torch.models import construct_model
+    from fullbatchtraining_tpu_torch.training import training
+
+    cfg = main_path_config(SURFACE + list(extra), hyp="gradreg")
+    cfg.original_cwd = str(folder)
+    if bundle is None:
+        bundle = construct_databundle(cfg.data, cfg.impl, cfg.hyp, seed=cfg.seed, device=DEVICE)
+    model = construct_model(cfg.model, bundle.channels, bundle.classes, seed=cfg.seed)
+    training.configure_backends(cfg)
+    trainer = training.Trainer(model, bundle, cfg, torch.device(DEVICE))
+    with torch.no_grad():
+        for start, images, _ in trainer.segments(*trainer.stage(0)):
+            for chunk in images[:max(4 - start, 0)]:
+                trainer.forward(model, trainer._normalize(chunk))
+    return trainer, training.TrainState(step=0, model=model, optimizer=None), bundle
+
+
+def surface_launches(positions, blocks):
+    """A surface with block gradients: per position and block, each
+    BatchNorm's ``BNEval`` forward (``apply``) and backward (``apply``,
+    ``bwd_reduce``)."""
+    n = positions * blocks * BN_LAYERS
+    return {"stats": 0, "apply": 2 * n, "bwd_reduce": n, "bwd_apply": 0}
+
+
+def timed_crunch(torch, trainer, state):
+    from fullbatchtraining_tpu_torch.visualization import crunch
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    store, positions = crunch(trainer, state)
+    torch.cuda.synchronize()
+    return store, positions, time.time() - t0
+
+
+def phase_surface_full(torch, bn, fb1):
+    """15a: the 1D surface at full width (``SURFACE_FULL``), counts set to
+    0 just before ``crunch``."""
+    import shutil
+
+    from fullbatchtraining_tpu_torch.data import epoch_layout
+
+    shutil.rmtree(SURFACE_DIR, ignore_errors=True)
+    trainer, state, bundle = surface_setup(torch, SURFACE_FULL, SURFACE_DIR / "full")
+    blocks, _, _ = epoch_layout(len(bundle.train), bundle.batch_size, bundle.batch_size)
+    torch.cuda.reset_peak_memory_stats()
+    bn.reset_counts()
+    store, positions, seconds = timed_crunch(torch, trainer, state)
+    counts, wide = dict(bn.launches), dict(bn.vector_launches)
+    rows = [store.results().get(store._key(p), {}) for p in positions]
+    expected = surface_launches(len(positions), blocks)
+    result = {"s": seconds, "positions": len(positions), "blocks": blocks,
+              "s_per_position": seconds / len(positions),
+              "ratio_to_fb1_step": seconds / len(positions) / fb1["step_s"][-1],
+              "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "launches": counts, "wide_launches": wide, "expected_launches": expected,
+              "rows": rows}
+    log(f"  {len(positions)} positions x {blocks} blocks of {bundle.batch_size}: {seconds:.3f} s, "
+        f"{result['s_per_position']:.3f} s a position, {result['ratio_to_fb1_step']:.2f}x "
+        f"phase 4's warm step ({fb1['step_s'][-1]:.3f} s); peak "
+        f"{result['peak_memory_gib']:.2f} GiB; launches {counts} (16 B {wide}), expected "
+        f"{expected}")
+    for row in rows:
+        log(f"    {row}")
+    check(counts == expected, f"surface launches {counts}, expected {expected}")
+    check(len(rows) == 5 and all(
+        all(math.isfinite(row.get(k, math.nan)) for k in ("train_loss", "train_acc", "full_loss"))
+        for row in rows), "a surface row is missing or not finite")
+    check(all(row["full_loss"] >= row["train_loss"] for row in rows),
+          "full_loss below train_loss with block_strength 0.5")
+    del trainer, state
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_surface_plain(torch, bn):
+    """15b: ``SURFACE_CUT`` (float32, 4,096 images, 3x3) on the kernels,
+    under ``plain_versions()`` and streamed from the host; then the
+    kernels' store again, which computes nothing."""
+    fields = ("train_loss", "train_acc", "full_loss")
+    runs, bundle = {}, None
+    for name, extra in (("kernels", []), ("plain", []), ("streamed", SURFACE_STREAMED)):
+        trainer, state, bundle = surface_setup(torch, SURFACE_CUT + extra, SURFACE_DIR / name,
+                                               bundle)
+        bn.reset_counts()
+        if name == "plain":
+            with bn.plain_versions():
+                store, positions, seconds = timed_crunch(torch, trainer, state)
+        else:
+            store, positions, seconds = timed_crunch(torch, trainer, state)
+        runs[name] = {"rows": store.results(), "launches": dict(bn.launches), "s": seconds,
+                      "store": store, "trainer": trainer, "state": state}
+        log(f"  {name}: {seconds:.3f} s, launches {runs[name]['launches']}")
+    ours, plain, streamed = (runs[k]["rows"] for k in ("kernels", "plain", "streamed"))
+    images = len(bundle.train)
+    gaps = {f: max(abs(ours[k][f] - plain[k][f]) / abs(plain[k][f]) for k in plain)
+            for f in ("train_loss", "full_loss")}
+    acc_images = max(abs(ours[k]["train_acc"] - plain[k]["train_acc"]) * images for k in plain)
+    differ = [k for k in ours if any(ours[k][f] != streamed[k][f] for f in fields)]
+    store = runs["kernels"]["store"]
+    before = store.results_file.read_bytes()
+    bn.reset_counts()
+    _, _, again_s = timed_crunch(torch, runs["kernels"]["trainer"], runs["kernels"]["state"])
+    again = {"launches": dict(bn.launches), "s": again_s,
+             "file_unchanged": store.results_file.read_bytes() == before}
+    blocks = images // bundle.batch_size
+    expected = surface_launches(9, blocks)
+    log(f"  kernels against plain: relative gaps {gaps} (tol {SURFACE_TOL:g}), accuracy "
+        f"{acc_images:.0f} images apart; streamed against resident: {len(differ)} of "
+        f"{len(ours)} rows differ; second call {again_s:.3f} s, launches {again['launches']}, "
+        f"results file unchanged: {again['file_unchanged']}")
+    check(ours.keys() == plain.keys() == streamed.keys() and len(ours) == 9,
+          "the runs hold other positions")
+    check(all(g <= SURFACE_TOL for g in gaps.values()), f"kernels against plain: {gaps}")
+    check(acc_images <= 1, f"accuracy {acc_images} images apart")
+    check(runs["kernels"]["launches"] == expected == runs["streamed"]["launches"],
+          f"launches {runs['kernels']['launches']}, expected {expected}")
+    check(runs["plain"]["launches"] == dict.fromkeys(expected, 0),
+          "plain_versions() launched kernels")
+    check(not differ, f"the streamed surface differs from the resident one: {differ}")
+    check(again["file_unchanged"] and not any(again["launches"].values()),
+          "the second call computed positions or changed the results file")
+    result = {name: {k: v for k, v in run.items() if k in ("launches", "s")}
+              for name, run in runs.items()}
+    result.update(gaps=gaps, accuracy_images_apart=acc_images, streamed_differ=differ,
+                  second_call=again, rows=ours)
+    del runs
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_snapshot(torch):
+    """15c: phase 4's configuration for one step with and without
+    ``SNAPSHOT`` (and a checkpoint, for 15d), in ``SURFACE_DIR / "snapshot"``;
+    returns the result and the snapshot run's ``(cfg, bundle, state,
+    stats, checkpoint file)``."""
+    import os
+
+    from fullbatchtraining_tpu_torch.models import construct_model
+    from fullbatchtraining_tpu_torch.training import training
+
+    base = FULL_WIDTH + ["hyp.steps=1"]
+    _, bundle, _, ref, _ = run_main_path(torch, base)
+    ref_tensors = {**{f"model/{k}": v.clone() for k, v in ref.model.state_dict().items()},
+                   **{f"momentum/{n}": ref.optimizer.state[p]["momentum_buffer"].clone()
+                      for n, p in ref.model.named_parameters()}}
+    del ref
+    folder = SURFACE_DIR / "snapshot"
+    folder.mkdir(parents=True, exist_ok=True)
+    writes, real = [], training.save_state_for_visualization
+
+    def timed(*args, **kwargs):
+        t0 = time.time()
+        out = real(*args, **kwargs)
+        writes.append(time.time() - t0)
+        return out
+
+    cwd = os.getcwd()
+    os.chdir(folder)
+    training.save_state_for_visualization = timed
+    try:
+        cfg, _, _, state, stats = run_main_path(torch, base + SNAPSHOT, bundle=bundle)
+    finally:
+        training.save_state_for_visualization = real
+        os.chdir(cwd)
+    tensors = {**{f"model/{k}": v for k, v in state.model.state_dict().items()},
+               **{f"momentum/{n}": state.optimizer.state[p]["momentum_buffer"]
+                  for n, p in state.model.named_parameters()}}
+    differ = [k for k in ref_tensors if not torch.equal(tensors[k], ref_tensors[k])]
+    [file] = folder.glob("chip_smoke_ResNet18_step_1.pt")
+    payload = torch.load(file, map_location="cpu", weights_only=True)
+
+    # the gradient of the same initial state, taken apart
+    model = construct_model(cfg.model, bundle.channels, bundle.classes, seed=cfg.seed,
+                            pixels=bundle.pixels)
+    trainer = training.Trainer(model, bundle, cfg, torch.device(DEVICE))
+    fresh = training.TrainState(step=0, model=model, optimizer=None)
+    grads = trainer.pre_step_gradient(fresh, *trainer.stage(0))
+    names = [n for n, _ in model.named_parameters()]
+    grads_differ = [n for n, g in zip(names, grads) if not torch.equal(g.cpu(), payload["grads"][n])]
+    result = {"file_bytes": file.stat().st_size, "write_s": writes, "tensors": len(ref_tensors),
+              "tensors_differ": differ, "grads_differ": grads_differ,
+              "step_s": stats["train_time"][0], "valid_acc": stats["valid_acc"][-1],
+              "update_directions": payload["update_directions"] is not None}
+    log(f"  snapshot {file.name}: {result['file_bytes'] / 1e6:.1f} MB written in {writes} s; "
+        f"step {result['step_s']:.3f} s (its pre-step pass included); {len(differ)} of "
+        f"{len(ref_tensors)} tensors differ from the step without a snapshot; {len(grads_differ)} "
+        f"of {len(names)} stored gradients differ from a pre_step_gradient apart")
+    check(len(writes) == 1, f"{len(writes)} snapshot writes, expected 1")
+    check(not differ, f"the snapshot run's step differs: {differ[:5]}")
+    check(not grads_differ, f"stored gradients differ: {grads_differ[:5]}")
+    check(result["update_directions"], "the snapshot holds no update directions")
+    del trainer, fresh, grads, payload
+    run = (cfg, bundle, state, stats, folder / "checkpoints" / "chip_smoke_snap.ckpt")
+    return result, run
+
+
+def phase_tools(torch, run):
+    """15d: ``verify_model_checkpoint`` on 15c's checkpoint, and
+    ``measure_floating_point_accuracy`` at phase 4's configuration under
+    both ``impl.deterministic`` settings."""
+    from fullbatchtraining_tpu_torch.measure_floating_point_accuracy import (
+        measure_implementation_noise)
+    from fullbatchtraining_tpu_torch.verify_model_checkpoint import verify_checkpoint
+
+    cfg, bundle, _, stats, file = run
+    t0 = time.time()
+    metrics = verify_checkpoint(cfg, file, DEVICE, bundle=bundle)
+    verify_s = time.time() - t0
+    result = {"verify": metrics, "verify_s": verify_s, "train_valid_acc": stats["valid_acc"][-1],
+              "deviations": {}}
+    log(f"  verify: {metrics} in {verify_s:.3f} s; the run's last valid_acc "
+        f"{stats['valid_acc'][-1]!r}")
+    check(metrics["valid_acc"] == stats["valid_acc"][-1],
+          f"verify gives valid_acc {metrics['valid_acc']!r}, the run {stats['valid_acc'][-1]!r}")
+    for flag in (True, False):
+        mcfg = main_path_config(FULL_WIDTH + ["hyp.steps=1", f"impl.deterministic={flag}"])
+        t0 = time.time()
+        deviations = measure_implementation_noise(mcfg, DEVICE, bundle=bundle)
+        result["deviations"][str(flag)] = {**deviations, "s": time.time() - t0}
+        log(f"  impl.deterministic={flag}: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in deviations.items())
+            + f" ({time.time() - t0:.2f} s)")
+        check(all(map(math.isfinite, deviations.values())), f"non-finite deviation {deviations}")
+    torch.backends.cudnn.deterministic = True
+    return result
+
+
+def phase_pth(torch, run):
+    """15e: 15c's trained state to the upstream 5-tuple and back into a fresh
+    model: every tensor, and the evaluation on the card, bitwise."""
+    from fullbatchtraining_tpu_torch import pretrained
+    from fullbatchtraining_tpu_torch.models import construct_model
+    from fullbatchtraining_tpu_torch.training import training
+
+    cfg, bundle, state, _, _ = run
+    file = SURFACE_DIR / "export" / "resnet18.pth"
+    t0 = time.time()
+    pretrained.export_reference_training_checkpoint(state, cfg, file)
+    export_s = time.time() - t0
+    model = construct_model(cfg.model, bundle.channels, bundle.classes, seed=cfg.seed + 1,
+                            pixels=bundle.pixels)
+    trainer = training.Trainer(model, bundle, cfg, torch.device(DEVICE))
+    fresh = training.TrainState(step=0, model=model,
+                                optimizer=training.make_optimizer(model, cfg.hyp))
+    t0 = time.time()
+    fresh, step = pretrained.import_reference_training_checkpoint(file, cfg, fresh)
+    import_s = time.time() - t0
+    ours, theirs = state.model.state_dict(), fresh.model.state_dict()
+    differ = [k for k in ours if not torch.equal(ours[k], theirs[k])]
+    momentum_differ = [n for n, p in state.model.named_parameters() if not torch.equal(
+        state.optimizer.state[p]["momentum_buffer"],
+        fresh.optimizer.state[dict(fresh.model.named_parameters())[n]]["momentum_buffer"])]
+    val = training.stage_validation(bundle, bundle.batch_size, torch.device(DEVICE),
+                                    cfg_impl=cfg.impl)
+    first = {k: v.item() for k, v in trainer.eval_step(state.model, *val).items()}
+    second = {k: v.item() for k, v in trainer.eval_step(fresh.model, *val).items()}
+    result = {"file_bytes": file.stat().st_size, "export_s": export_s, "import_s": import_s,
+              "step": step, "tensors_differ": differ, "momentum_differ": momentum_differ,
+              "eval": first, "eval_imported": second}
+    log(f"  {file.name}: {result['file_bytes'] / 1e6:.1f} MB, export {export_s:.3f} s, import "
+        f"{import_s:.3f} s, step {step}; {len(differ)} of {len(ours)} tensors and "
+        f"{len(momentum_differ)} momentum buffers differ; evaluation {first} against {second}")
+    check(step == state.step and not differ and not momentum_differ,
+          f"the round trip changed step {step}, tensors {differ[:5]} or momentum "
+          f"{momentum_differ[:5]}")
+    check(first == second, f"the imported model evaluates to {second}, the first to {first}")
+    return result
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write every measurement to this JSON file")
@@ -2849,6 +3164,21 @@ def main() -> int:
     phase("[14e] the flatness walk at 14b's cut")
     analysis_flatness = phase_analysis_flatness(torch, analysis_bundle)
     del analysis_bundle
+    phase("[15a] a loss surface at full width: hyp=gradreg, bf16, 5 positions x 24 blocks "
+          "of 2048")
+    surface = phase_surface_full(torch, bn, full)
+    phase("[15b] a 3x3 surface over 4,096 images, float32: kernels against plain versions, "
+          "streamed against resident, a second call")
+    surface_plain = phase_surface_plain(torch, bn)
+    phase("[15c] a hyp=fb1 step with a model snapshot: bitwise the step without")
+    snapshot, snapshot_run = phase_snapshot(torch)
+    phase("[15d] verify_model_checkpoint and measure_floating_point_accuracy")
+    tools = phase_tools(torch, snapshot_run)
+    phase("[15e] the trained state through the upstream .pth format and back")
+    pth = phase_pth(torch, snapshot_run)
+    del snapshot_run
+    import shutil
+    shutil.rmtree(SURFACE_DIR, ignore_errors=True)
     family_runs = [fam_multinode, fam_memeff["plain"], fam_memeff["memory_efficient"],
                    *fam_fp32.values(), *fam_bf16.values()]
 
@@ -2873,6 +3203,7 @@ def main() -> int:
             "launches_zoo": zoo_lbfgs["launches"][name],
             "launches_families": sum(run["launches"][name] for run in family_runs),
             "launches_analysis": analysis_sweep["launches"][name],
+            "launches_landscape": surface["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": "bytes", "library_ms": total("library_ms"),
@@ -2904,6 +3235,8 @@ def main() -> int:
              "family_profile": fam_profile, "bn_eval_rows": bn_eval_rows,
              "analysis_plain": analysis_plain, "analysis_sweep": analysis_sweep,
              "analysis_train": analysis_train, "analysis_flatness": analysis_flatness,
+             "surface": surface, "surface_plain": surface_plain, "snapshot": snapshot,
+             "tools": tools, "pth": pth,
              "kernels": kernels, "phase_starts_s": starts}, indent=1, default=str))
     log(f"all phases passed in {time.time() - started:.0f} s; phases started at (s): "
         + ", ".join(f"{k} {v:.0f}" for k, v in starts.items()))

@@ -20,17 +20,14 @@ from __future__ import annotations
 
 import logging
 
-import numpy as np
 import torch
 
 from ..data.augmentations import normalize as normalize_images
-from ..data.pipeline import epoch_layout, rank_rows, stream_plan
 from ..parallel import all_gather
-from ..parallel.streaming import HostRows
 from ..training.grad_reg import tree_sqnorm
 from ..training.opt.adaptive_clipping import AdaptiveClippedSGD
 from ..training.opt.lars import LARS
-from ..training.training import stage_validation, upload_rows
+from ..training.training import stage_validation
 from .directions import perturb2threshold
 from .welford import WelfordState, welford_finalize, welford_init, welford_merge, welford_update
 
@@ -135,24 +132,10 @@ def gradient_sweep(trainer, model):
     every rank's chunk gradients, their norms in dataset order, samples a
     chunk)``."""
     cfg, bundle, world, device = trainer.cfg, trainer.bundle, trainer.world, trainer.device
-    train = bundle.train
     a_chunks = max(int(cfg.analysis.internal_batch_size_chunks), 1)
-    num_blocks, chunks, sub = epoch_layout(len(train), bundle.batch_size,
-                                           max(bundle.batch_size // a_chunks, 1), world.size,
-                                           dryrun=cfg.dryrun)
+    num_blocks, chunks, sub, images, labels = trainer.sweep_rows(
+        max(bundle.batch_size // a_chunks, 1), "Analysis sweep")
     rows = num_blocks * chunks
-    order = rank_rows(np.arange(len(train)), num_blocks, chunks, sub, world.size, world.rank)
-    labels = torch.from_numpy(train.labels[order]).long().to(device).view(rows, sub)
-    item = int(np.prod(train.images.shape[1:])) * train.images.dtype.itemsize
-    streamed, seg_blocks, nbytes = stream_plan(num_blocks, chunks, sub, world.size, item,
-                                               cfg.impl)
-    if streamed:
-        log.info("Analysis sweep (%.2f GB laid out) above impl.hbm_epoch_max_bytes: streamed "
-                 "from the host in segments of %d blocks.", nbytes / 1e9, seg_blocks)
-        images = HostRows(train.images, order, rows, sub, seg_blocks * chunks)
-    else:
-        images = upload_rows(train.images, order, device, len(order)).view(
-            rows, sub, *train.images.shape[1:])
 
     acc = torch.promote_types(trainer.param_dtype, torch.float32)
     params = trainer.params

@@ -311,12 +311,15 @@ def _resolve_interpolations(node: Any, root: ConfigNode) -> Any:
     return node
 
 
-def to_yaml(cfg: ConfigNode) -> str:
-    def plain(node: Any) -> Any:
-        if isinstance(node, dict):
-            return {k: plain(v) for k, v in node.items()}
-        if isinstance(node, list):
-            return [plain(v) for v in node]
-        return node
+def to_plain(node: Any) -> Any:
+    """A config node as plain dicts and lists (what ``yaml.safe_dump`` and
+    ``torch.load(weights_only=True)`` take)."""
+    if isinstance(node, dict):
+        return {k: to_plain(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [to_plain(v) for v in node]
+    return node
 
-    return yaml.safe_dump(plain(cfg), sort_keys=False, default_flow_style=False)
+
+def to_yaml(cfg: ConfigNode) -> str:
+    return yaml.safe_dump(to_plain(cfg), sort_keys=False, default_flow_style=False)

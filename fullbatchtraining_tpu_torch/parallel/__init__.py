@@ -10,7 +10,8 @@ mesh's device count ``W``.
 
 The port calls four collectives and only these: :func:`all_reduce` (a sum),
 :func:`all_gather` (of L-BFGS's sharded vectors, ``impl.shard_opt_vectors``),
-:func:`broadcast` and :func:`barrier`. Gloo takes all four for CUDA tensors
+:func:`broadcast` (of an integer, or :func:`broadcast_flags` of booleans: the
+loss surface's pending positions) and :func:`barrier`. Gloo takes all four for CUDA tensors
 too. Each call adds one to ``calls[name]``. Without a process group (one
 process, ``group is None``) each returns its input and counts nothing.
 """
@@ -124,6 +125,20 @@ def broadcast(world: World, value: int) -> int:
     tensor = torch.tensor([value], dtype=torch.int64, device=on)
     dist.broadcast(tensor, src=0, group=world.group)
     return int(tensor.item())
+
+
+def broadcast_flags(world: World, flags) -> list:
+    """Rank 0's list of booleans ``flags``, on every rank (each rank passes
+    a list of the same length)."""
+    flags = [bool(f) for f in flags]
+    if world.group is None or not flags:
+        return flags
+    calls["broadcast"] += 1
+    on = (torch.device("cuda", torch.cuda.current_device())
+          if dist.get_backend(world.group) == "nccl" else torch.device("cpu"))
+    tensor = torch.tensor(flags, dtype=torch.uint8, device=on)
+    dist.broadcast(tensor, src=0, group=world.group)
+    return [bool(v) for v in tensor.tolist()]
 
 
 def barrier(world: World) -> None:

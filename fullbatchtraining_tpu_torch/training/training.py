@@ -63,7 +63,13 @@ With ``analysis.type`` set, a step after which analysis is due and reads
 gradients first takes :meth:`Trainer.pre_step_gradient`, the gradient that
 produces the step, in a pass that leaves the running stats as they were;
 :func:`~..analysis.analyze` runs after the validation and again at the
-``hyp.stop_at_full_training_accuracy`` stop, as in the JAX loop.
+``hyp.stop_at_full_training_accuracy`` stop, as in the JAX loop. With
+``analysis.save_model_every_nth_step`` the steps ``k`` with ``(k - 1) %
+every == 0`` and the last write ``<name>_<model>_step_<k>.pt`` in the
+working directory (rank 0; :func:`~.utils.save_state_for_visualization`):
+the model after the step, the pre-step gradient (one pass serves analysis
+and the snapshot where both are due) and the update direction, the SGD
+momentum buffers or, under Nesterov, ``g + momentum * buffer``.
 """
 
 from __future__ import annotations
@@ -91,7 +97,8 @@ from ..utils import resolve_device
 from .grad_reg import make_grad_regularizer, tree_add_scaled, tree_sqnorm
 from .opt.closures import DriverState, make_closure_step, make_stochastic_closure_step
 from .optimizers import make_lr_schedule, make_optimizer, optim_interface
-from .utils import CheckpointWriter, checkpoint_file, load_checkpoint
+from .utils import (CheckpointWriter, checkpoint_file, load_checkpoint,
+                    save_state_for_visualization)
 
 log = logging.getLogger(__name__)
 
@@ -118,8 +125,6 @@ def check_slice(cfg) -> None:
     """Raise for modes the port does not run yet, naming their ROADMAP item."""
     hyp = cfg.hyp
     missing = [
-        (cfg.analysis.save_model_every_nth_step is not None,
-         "analysis.save_model_every_nth_step", "Loss landscape and tools"),
         (cfg.impl.get("trace", False), "impl.trace", "Profiler trace"),
         ("float16" in (cfg.impl.dtype, cfg.impl.compute_dtype, cfg.impl.accumulation_dtype),
          "float16 parameters or compute", "Float16 compute"),
@@ -378,6 +383,33 @@ class Trainer:
             return
         for start, segment in stream_segments(images, self.device):
             yield start, segment, labels[start:start + len(segment)]
+
+    def sweep_rows(self, sub_batch: int, what: str):
+        """The unshuffled, unaugmented train split laid out ``(blocks, ranks,
+        chunks, sub)`` in blocks of ``data.batch_size`` and chunks of
+        ``sub_batch``, for the sweeps of analysis and the loss surface:
+        ``(num_blocks, chunks, sub, images, labels)`` with this rank's rows,
+        one a chunk, resident or, above ``impl.hbm_epoch_max_bytes``, as
+        :class:`HostRows` that :meth:`segments` streams (``what`` names the
+        sweep in the log)."""
+        cfg, bundle, world = self.cfg, self.bundle, self.world
+        train = bundle.train
+        num_blocks, chunks, sub = epoch_layout(len(train), bundle.batch_size, sub_batch,
+                                               world.size, dryrun=cfg.dryrun)
+        rows = num_blocks * chunks
+        order = rank_rows(np.arange(len(train)), num_blocks, chunks, sub, world.size, world.rank)
+        labels = torch.from_numpy(train.labels[order]).long().to(self.device).view(rows, sub)
+        item = int(np.prod(train.images.shape[1:])) * train.images.dtype.itemsize
+        streamed, seg_blocks, nbytes = stream_plan(num_blocks, chunks, sub, world.size, item,
+                                                   cfg.impl)
+        if streamed:
+            log.info("%s (%.2f GB laid out) above impl.hbm_epoch_max_bytes: streamed from the "
+                     "host in segments of %d blocks.", what, nbytes / 1e9, seg_blocks)
+            images = HostRows(train.images, order, rows, sub, seg_blocks * chunks)
+        else:
+            images = upload_rows(train.images, order, self.device, len(order)).view(
+                rows, sub, *train.images.shape[1:])
+        return num_blocks, chunks, sub, images, labels
 
     # -- inputs and forward -------------------------------------------------
     def _normalize(self, images):
@@ -926,6 +958,21 @@ def train(model: nn.Module, bundle: DataBundle, cfg, device="cuda", stats=None,
     return result
 
 
+def save_snapshot(trainer: Trainer, state: TrainState, grads, cfg):
+    """``<name>_<model>_step_<step>.pt`` in the working directory: the model
+    after the step, its pre-step gradient ``grads`` and its update direction
+    (the SGD momentum buffers, ``g + momentum * buffer`` under Nesterov,
+    None for an optimizer without them)."""
+    from ..analysis.analysis import sgd_momentum
+
+    update_directions = sgd_momentum(state.optimizer, trainer.params)
+    if update_directions is not None and cfg.hyp.optim.get("nesterov", False):
+        mu = float(cfg.hyp.optim.momentum)
+        update_directions = [g + mu * m for g, m in zip(grads, update_directions)]
+    return save_state_for_visualization(state, grads, update_directions, cfg,
+                                        f"{cfg.name}_{cfg.model.name}_step_{state.step}.pt")
+
+
 def _train_loop(trainer: Trainer, state: TrainState, bundle: DataBundle, cfg, writer, stats,
                 driver=None):
     hyp = cfg.hyp
@@ -937,6 +984,7 @@ def _train_loop(trainer: Trainer, state: TrainState, bundle: DataBundle, cfg, wr
         from ..analysis import analyze
     reads_grads = analysis.type is not None and (analysis.get("measure_grad_norm", False)
                                                  or analysis.get("check_momentum", False))
+    snapshot_every = analysis.get("save_model_every_nth_step")
     while state.step < hyp.steps:
         t0 = time.time()
         # the configured mode before hyp.train_switch_stochastic, the other
@@ -945,11 +993,13 @@ def _train_loop(trainer: Trainer, state: TrainState, bundle: DataBundle, cfg, wr
         if hyp.train_switch_stochastic is not None and state.step >= hyp.train_switch_stochastic:
             stochastic = not hyp.train_stochastic
         images, labels = trainer.stage(state.step)
-        # analysis reads the gradient that produced the step, so it is
-        # taken before the step when analysis is due after it
+        # analysis and the snapshots read the gradient that produced the
+        # step, so it is taken before the step when either is due after it
+        snapshot_due = snapshot_every is not None and (state.step % snapshot_every == 0
+                                                       or state.step + 1 >= hyp.steps)
         grads = None
-        if reads_grads and ((state.step + 1) % analysis.check_every_nth_step == 0
-                            or state.step + 1 >= hyp.steps or cfg.dryrun):
+        if snapshot_due or (reads_grads and ((state.step + 1) % analysis.check_every_nth_step
+                                             == 0 or state.step + 1 >= hyp.steps or cfg.dryrun)):
             grads = trainer.pre_step_gradient(state, images, labels)
         if stochastic and (driver is None or trainer.sam_rho is not None):
             # SAM's stochastic epoch stays the fused one, as in the JAX package
@@ -987,6 +1037,9 @@ def _train_loop(trainer: Trainer, state: TrainState, bundle: DataBundle, cfg, wr
         if analysis.type is not None and (step % analysis.check_every_nth_step == 0
                                           or step >= hyp.steps or cfg.dryrun):
             analyze(trainer, state, stats, grads=grads)
+
+        if snapshot_due and trainer.world.rank == 0:
+            save_snapshot(trainer, state, grads, cfg)
 
         # every rank reads the same reduced metrics, so all take one branch
         if not np.isfinite(stats["train_loss"][-1]):

@@ -20,6 +20,10 @@ writer thread, one write in flight. ``torch.optim`` and BatchNorm update
 params and buffers in place, so the step after a save would overwrite what
 the thread reads: the snapshot is a clone on the device, taken before the save
 returns (the port's counterpart of the JAX package's donation safety).
+
+:func:`save_state_for_visualization` writes the loop's model snapshots
+(``analysis.save_model_every_nth_step``), for loss-surface and trajectory
+plots, the same way.
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 
 import torch
+
+from ..config import to_plain
 
 log = logging.getLogger(__name__)
 
@@ -108,13 +114,16 @@ class CheckpointWriter:
                 self._pool = None
 
 
-def load_checkpoint(state, file: Path, max_steps: int, driver=None) -> int:
-    """Fill ``state`` (model, optimizer, EMA model) and ``driver`` (a closure
-    optimizer's) from ``file`` and return its step: 0, and ``state``
-    untouched, where there is no file. Raises ``ValueError`` when the
+def load_checkpoint(state, file: Path, max_steps: int, driver=None, require=False) -> int:
+    """Fill ``state`` (model, optimizer and EMA model, where ``state`` has
+    them) and ``driver`` (a closure optimizer's) from ``file`` and return its
+    step: 0, and ``state`` untouched, where there is no file (with
+    ``require``, ``FileNotFoundError``). Raises ``ValueError`` when the
     checkpoint has reached ``max_steps``."""
     file = Path(file)
     if not file.exists():
+        if require:
+            raise FileNotFoundError(f"no checkpoint at {file}")
         log.info("No existing checkpoint found. Starting to train from step 0.")
         return 0
     payload = torch.load(file, map_location="cpu", weights_only=True)
@@ -132,3 +141,20 @@ def load_checkpoint(state, file: Path, max_steps: int, driver=None) -> int:
     state.step = step
     log.info("Existing checkpoint loaded successfully. Continuing from step %d.", step)
     return step
+
+
+def save_state_for_visualization(state, grads, update_directions, cfg, path) -> Path:
+    """A model snapshot at ``path``: ``torch.save`` of ``{"model": the
+    state_dict (params and running stats), "grads": {param name: tensor},
+    "update_directions": {param name: tensor} or None, "model_cfg": cfg.model
+    as plain dicts}``, ``grads`` and ``update_directions`` lists in
+    ``parameters()`` order; written as a checkpoint is."""
+    names = [name for name, _ in state.model.named_parameters()]
+
+    def named(tensors):
+        return None if tensors is None else dict(zip(names, tensors, strict=True))
+
+    payload = {"model": state.model.state_dict(), "grads": named(grads),
+               "update_directions": named(update_directions), "model_cfg": to_plain(cfg.model)}
+    write_checkpoint(payload, Path(path))
+    return Path(path)

@@ -34,7 +34,16 @@ def test_importing_every_module_loads_no_jax():
             *(f"fullbatchtraining_tpu_torch.models.{name}" for name in (
                 "densenets", "layers", "modules", "nfnets", "pyramidnets", "resnets", "vgg")),
             *(f"fullbatchtraining_tpu_torch.training.opt.{name}" for name in (
-                "adaptive_clipping", "agc", "closures", "fista", "lars", "lbfgs"))
+                "adaptive_clipping", "agc", "closures", "fista", "lars", "lbfgs")),
+            *(f"fullbatchtraining_tpu_torch.visualization.{name}" for name in (
+                "crunch", "database", "plotting")),
+            "fullbatchtraining_tpu_torch.visualization", "fullbatchtraining_tpu_torch.pretrained",
+            "fullbatchtraining_tpu_torch.hub", "fullbatchtraining_tpu_torch.data.lmdb_reader",
+            *(f"fullbatchtraining_tpu_torch.tools.{name}" for name in (
+                "lmdb_import", "import_reference_checkpoint", "export_reference_checkpoint")),
+            *(f"fullbatchtraining_tpu_torch.{name}" for name in (
+                "crunch_loss_landscape", "verify_model_checkpoint",
+                "measure_floating_point_accuracy"))
             } <= set(_modules())
     script = f"""
 import importlib, sys
@@ -112,18 +121,19 @@ def test_cli_dryrun_default_recipe(tmp_path):
 
 
 BOUNDARIES = {
-    "model-snapshots": ["analysis=full", "analysis.save_model_every_nth_step=1"],
     "trace": ["impl.trace=True"],
     "float16-compute": ["impl.compute_dtype=float16"],
     "float16-params": ["impl.dtype=float16"],
 }
 # the item a refusal must name, where it is known
-BOUNDARY_ITEMS = {"model-snapshots": "Loss landscape and tools"}
+BOUNDARY_ITEMS = {}
 # full-width families run their dryrun step on blocks of 16 images
 SMALL_BLOCK = ["data.batch_size=16"]
 # modes that raised until the streamed epochs, other datasets, the optimizer
-# zoo, the other model families and norms and analysis came in
+# zoo, the other model families and norms, analysis and the loss landscape's
+# snapshots came in
 FORMER_BOUNDARIES = {
+    "model-snapshots": ["analysis=full", "analysis.save_model_every_nth_step=1"],
     "analysis": ["analysis=full", "analysis.compute_gradient_SNR=True",
                  "analysis.compute_gradient_noise_scale=True", "analysis.compute_flatness=True"],
     "lars": ["hyp/optim_modification=LARS"],
@@ -175,10 +185,12 @@ def test_modes_outside_the_slice_raise(case, config_dir):
 
 
 @pytest.mark.parametrize("case", list(FORMER_BOUNDARIES))
-def test_modes_now_in_the_slice_run(case, config_dir):
+def test_modes_now_in_the_slice_run(case, config_dir, monkeypatch, tmp_path):
     """A mode that once raised NotImplementedError runs a dryrun step and
     its evaluation on the CPU (on one intra-op thread: tiny ops, which
-    several test workers with a thread per core each slow down)."""
+    several test workers with a thread per core each slow down), in a
+    working directory of its own (snapshots are written there)."""
+    monkeypatch.chdir(tmp_path)
     from fullbatchtraining_tpu_torch.config import load_config
     from fullbatchtraining_tpu_torch.data import construct_databundle
     from fullbatchtraining_tpu_torch.models import construct_model
@@ -197,6 +209,7 @@ def test_modes_now_in_the_slice_run(case, config_dir):
         torch.set_num_threads(threads)
     assert len(stats["train_loss"]) == 1 and len(stats["valid_loss"]) == 1
     assert all(np.isfinite(stats["train_loss"] + stats["valid_loss"]))
+    assert bool(list(tmp_path.glob("*_step_1.pt"))) == (case == "model-snapshots")
 
 
 BAKED = ["data/db=baked", "data.db.rounds=2", "data.augmentations_train="]
