@@ -11,15 +11,15 @@ Phases, in order; any failure exits non-zero before the result lines:
    ``BN_KERNEL_NAMES`` must be in the report, and none may spill).
 2. Every kernel against its plain PyTorch version at ResNet-18/CIFAR's BN
    shapes for a chunk of 2048 images (the bench shape), in float32 and
-   bfloat16, plus BNTrain forward+backward; times of kernel, plain version,
-   the one-call PyTorch equivalent (the CUDA batch-norm functions that
-   SyncBatchNorm calls; ``F.batch_norm`` for ``apply`` and BNTrain), and the
-   bound (bytes each function must move over 3.35 TB/s). Each launch logs
-   the bytes a thread moved per access; every kernel must take 16 bytes
-   there, and runs once more on a copy of ``x`` one element off 16-byte
-   alignment, which takes its one-element width (checked and timed as
-   ``narrow_ms``). Beside each kernel's time, ``host_ms``: the host's
-   time to enqueue one call of its wrapper.
+   bfloat16 (float16 in phase 16), plus BNTrain forward+backward; times of
+   kernel, plain version, the one-call PyTorch equivalent (the CUDA
+   batch-norm functions that SyncBatchNorm calls; ``F.batch_norm`` for
+   ``apply`` and BNTrain), and the bound (bytes each function must move
+   over 3.35 TB/s). Each launch logs the bytes a thread moved per access;
+   every kernel must take 16 bytes there, and runs once more on a copy of
+   ``x`` one element off 16-byte alignment, which takes its one-element
+   width (checked and timed as ``narrow_ms``). Beside each kernel's time,
+   ``host_ms``: the host's time to enqueue one call of its wrapper.
 3. One float32 full-batch step of the main path (ResNet-18, 8192 images in
    chunks of 512) with the kernels, and the same step under
    ``ops.bn.plain_versions()``: loss, gradient norm, parameters and running
@@ -174,6 +174,22 @@ Phases, in order; any failure exits non-zero before the result lines:
    ``False``: six finite deviations each. (e) (c)'s trained state to the
    upstream ``.pth`` 5-tuple and back into a fresh model: every tensor and
    the model's evaluation on the card bitwise the first.
+16. Float16. (a) Phase 2's check of the float16 instances at its shapes,
+   against the float16 yardsticks (``torch.batch_norm_stats``, ...,
+   ``F.batch_norm``). (b) A float32-parameter ``impl.compute_dtype=float16``
+   ``hyp=fb1`` step as phase 3, each quantity beyond its tolerance held to
+   10x a plain run from weights off by 2^-20. Beside it, float16 products
+   with cuBLAS's reduced-precision reduction on and off against float64.
+   (c) ``impl.compute_dtype=float16`` at phase 4's width, 2 steps: every BN
+   launch a float16 one at 16 bytes, phase 4's launches a step and an
+   evaluation, the step times beside phase 4's, and the share of
+   exactly-zero entries of one chunk's gradient in float16, bf16 and
+   float32 at its trained weights (no loss scaling: a finding). (d) (c)
+   with ``impl.trace=True impl.trace_steps=1``: the trace's device events
+   of the four float16 kernels equal the launches of the traced step and
+   its evaluation, and the stats are bitwise (c)'s. (e) ``python -m
+   fullbatchtraining_tpu_torch --multirun seed=0,1`` (a dryrun at width 16)
+   makes ``<sweep>/0`` and ``<sweep>/1``, each with its log.
 
 The last lines are the card line, a JSON object of per-kernel numbers (their
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` sum the 20 BN layers of
@@ -183,8 +199,10 @@ layer alone; ``launches`` counts phase 4, ``launches_gradreg`` phase 7,
 ``launches_baked`` phase 9b, ``launches_dist`` phase 10a,
 ``launches_tinyimagenet`` 11a, ``launches_streamed`` 11b,
 ``launches_imagenet`` 11c, ``launches_zoo`` 12a, ``launches_families``
-13a-13d, ``launches_analysis`` 14c and ``launches_landscape`` 15a;
-``family_shapes`` holds 13e's rows),
+13a-13d, ``launches_analysis`` 14c, ``launches_landscape`` 15a and
+``launches_f16`` 16c; ``ms_f16``, ``plain_ms_f16``, ``bound_ms_f16``,
+``library_ms_f16`` and ``max_abs_err_f16`` are 16a's float16 chunk of 2048
+as the bf16 keys; ``family_shapes`` holds 13e's rows),
 and ``{"ok": true,
 "device": {...}}``.
 """
@@ -219,8 +237,9 @@ REPLACES = {"stats": "fullbatchtraining_tpu/ops/pallas_bn.py:88",
 # memory-bound: a few operations per element stay far below the card's rate.
 BYTES_PER_ELEMENT = {"stats": 1, "apply": 2, "bwd_reduce": 2, "bwd_apply": 3, "bn_train": 4}
 SUM_TOL = 1e-5        # reductions: error / sum of |terms| (float32 sums, any order)
-ULP = {"float32": 2.0 ** -23, "bfloat16": 2.0 ** -7}
-BN_TRAIN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # error / max |plain output|
+ULP = {"float32": 2.0 ** -23, "bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
+# error / max |plain output|: bf16's 2e-2 is 2.56 ulp, float16 takes as many
+BN_TRAIN_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 2.5e-3}
 
 
 def log(*args):
@@ -292,15 +311,16 @@ def access_bytes(bn, name, before, itemsize) -> int:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def phase_kernels(torch, bn, chunk=CHUNK, stages=STAGES):
+def phase_kernels(torch, bn, chunk=CHUNK, stages=STAGES, dtypes=("float32", "bfloat16")):
     """Every kernel against its plain version at the BN shapes ``stages``
-    (``(H*W, C)``) of a chunk of ``chunk`` images, with its times; 16 bytes
-    a thread where ``C`` allows it, else one element."""
+    (``(H*W, C)``) of a chunk of ``chunk`` images in each of ``dtypes``,
+    with its times; 16 bytes a thread where ``C`` allows it, else one
+    element."""
     import torch.nn.functional as F
 
     rows = []
     dev = torch.device(DEVICE)
-    for dtype_name in ("float32", "bfloat16"):
+    for dtype_name in dtypes:
         dtype = getattr(torch, dtype_name)
         for hw, c in stages:
             m = chunk * hw
@@ -516,13 +536,17 @@ STEP_TOLS = {"fb1": (("train_loss", 1e-5), ("grad_norm", 1e-4), ("full_loss", 1e
                          ("valid_loss", 1e-4))}
 
 
-def kernels_against_plain_step(torch, bn, hyp="fb1", extra=(), control=False):
+def kernels_against_plain_step(torch, bn, hyp="fb1", extra=(), control=False,
+                               stat_control=False):
     """One float32 step (``FP32_STEP``) on the kernels and under
     ``plain_versions()``: the stats of ``STEP_TOLS[hyp]``, the updated
     params (within 1e-3 of the update, times the amplification of a finite
     difference where the regularizer takes one; with ``control``, a tensor
     beyond that may instead stay within :func:`against_control`'s bound)
-    and the running stats (1e-4) must agree.
+    and the running stats (1e-4) must agree. With ``stat_control`` (a
+    float16 forward, where one rounding moves a loss by more than 1e-5) a
+    stat beyond its tolerance may also stay within ``CONTROL_FACTOR`` times
+    the control run's difference of it.
     Returns the kernel run's launch counts, its double backwards and the
     chunks of the step."""
     from fullbatchtraining_tpu_torch.data import epoch_layout
@@ -537,9 +561,22 @@ def kernels_against_plain_step(torch, bn, hyp="fb1", extra=(), control=False):
             else bundle.size)  # a semi-stochastic step reads one round
     blocks, chunks, _ = epoch_layout(size, bundle.batch_size, cfg.hyp.sub_batch)
     log(f"  launches (kernel run): {counts}; double backwards {doubles}")
+    cstats = None
     for key, tol in STEP_TOLS[hyp]:
         a, b = kstats[key][-1], pstats[key][-1]
         log(f"  {key}: kernels {a!r} plain {b!r} rel diff {abs(a - b) / abs(b):.2e} (tol {tol:g})")
+        if stat_control and abs(a - b) > tol * abs(b):
+            if cstats is None:
+                with bn.plain_versions():
+                    cstats = run_main_path(torch, FP32_STEP + list(extra), hyp,
+                                           perturb=CONTROL_EPS)[4]
+            c = cstats[key][-1]
+            log(f"    control (plain from weights off by {CONTROL_EPS:.1e}): {c!r}, "
+                f"|kernels - plain| {abs(a - b):.2e} against {CONTROL_FACTOR} x "
+                f"|control - plain| {CONTROL_FACTOR * abs(c - b):.2e}")
+            check(abs(a - b) <= CONTROL_FACTOR * abs(c - b),
+                  f"{key} differs between kernels and plain versions beyond the control")
+            continue
         check(abs(a - b) <= tol * abs(b), f"{key} differs between kernels and plain versions")
     ks, ps = kstate.model.state_dict(), pstate.model.state_dict()
     worst_param, worst_stat = 0.0, 0.0
@@ -3033,6 +3070,200 @@ def phase_pth(torch, run):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 16: float16 compute, the profiler trace and --multirun sweeps
+# ---------------------------------------------------------------------------
+
+F16 = ["impl.compute_dtype=float16"]
+F16_FULL = FULL_WIDTH + F16 + ["hyp.steps=2"]
+TRACE = ["impl.trace=True", "impl.trace_steps=1"]
+TRACE_DIR = ROOT / "build" / "chip_smoke_trace"
+MULTIRUN = ["--multirun", "seed=0,1", "hyp=fb1", "dryrun=True", "model.width=16"]
+MULTIRUN_DIR = ROOT / "build" / "chip_smoke_multirun"
+# the kernels' names in a trace, each as its f16 instance (the "::" keeps
+# apply_kernel from matching bwd_apply_kernel)
+F16_KERNELS = {"stats": "::stats_partial<__half", "apply": "::apply_kernel<__half",
+               "bwd_reduce": "::bwd_reduce_partial<__half",
+               "bwd_apply": "::bwd_apply_kernel<__half"}
+
+
+def f16_run(torch, bn, extra=()):
+    """``F16_FULL`` (and ``extra``) through ``training.train``, counts set
+    to 0 just before: ``(stats, launches by kernel and input type, launches
+    at 16 bytes, the run)``."""
+    bn.reset_counts()
+    run = run_main_path(torch, F16_FULL + list(extra))
+    return (run[4], {k: dict(v) for k, v in bn.dtype_launches.items()},
+            dict(bn.vector_launches), run)
+
+
+def zero_gradient_share(torch, model, bundle, extra):
+    """The share of exactly-zero entries in the gradient of the first chunk
+    of phase 4's configuration under ``extra`` (its dtypes) at ``model``'s
+    float32 weights, without augmentation. (At the seeded weights the
+    residual branches' last BatchNorm scales are 0, and so is most of the
+    gradient, in every dtype.)"""
+    from fullbatchtraining_tpu_torch.training import training
+
+    cfg = main_path_config(FULL_WIDTH + list(extra))
+    trainer = training.Trainer(model, bundle, cfg, torch.device(DEVICE))
+    images, labels = trainer.stage(0)
+    loss = trainer.criterion(trainer.forward(model, trainer._normalize(images[0])), labels[0])
+    grads = torch.autograd.grad(loss, trainer.params)
+    zeros = sum(int((g == 0).sum()) for g in grads)
+    return zeros / sum(g.numel() for g in grads)
+
+
+# the linear layer's products in a float16 ResNet-18 step at chunks of 2048
+# ((M, K, N): forward, input gradient, weight gradient), and one deep sum
+F16_MATMULS = [(2048, 512, 10), (2048, 10, 512), (10, 2048, 512), (512, 65536, 512)]
+
+
+def phase_f16_matmul(torch):
+    """float16 products under
+    ``torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction``
+    on and off: each one's largest error against float64 relative to the
+    largest ``|A| @ |B|`` entry, and its time. The JAX dot accumulates
+    float16 in float32; ``configure_backends`` keeps the setting that
+    matches it."""
+    flag = torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction
+    g = torch.Generator(device=DEVICE).manual_seed(16)
+    rows = []
+    try:
+        for m, k, n in F16_MATMULS:
+            a = torch.randn((m, k), generator=g, device=DEVICE).half()
+            b = torch.randn((k, n), generator=g, device=DEVICE).half()
+            exact = a.double() @ b.double()
+            size = (a.double().abs() @ b.double().abs()).max().item()
+            row = {"m": m, "k": k, "n": n}
+            for reduced in (True, False):
+                torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = reduced
+                err = ((a @ b).double() - exact).abs().max().item() / size
+                row[f"rel_err_{reduced}"] = err
+                row[f"ms_{reduced}"] = cuda_ms(torch, lambda: a @ b)
+            rows.append(row)
+            log(f"  f16 matmul M={m} K={k} N={n}: reduced-precision reduction on: rel err "
+                f"{row['rel_err_True']:.2e}, {row['ms_True']:.4f} ms; off: "
+                f"{row['rel_err_False']:.2e}, {row['ms_False']:.4f} ms")
+    finally:
+        torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = flag
+    return {"configured": flag, "rows": rows}
+
+
+def phase_f16_full_width(torch, bn, fb1):
+    """16c: ``F16_FULL`` through ``training.train``: every BN launch a
+    float16 one at 16 bytes, phase 4's bf16 launches a step and an
+    evaluation; the step times beside phase 4's; the share of exactly-zero
+    entries of one chunk's gradient in float16, bf16 and float32 at the
+    weights of its 2 steps (no loss scaling: a finding, not a gate)."""
+    stats, by_dtype, wide, (_, bundle, _, state, _) = f16_run(torch, bn)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    f16 = by_dtype["f16"]
+    steps, evals = len(stats["train_loss"]), len(stats["valid_loss"])
+    per_step = fb1_step_launches(fb1)
+    expected = {k: per_step[k] * steps for k in KERNELS}
+    expected["apply"] = per_step["apply"] * evals + per_step["stats"] * (steps - evals)
+    others = {k: v for k, v in by_dtype.items() if k != "f16" and any(v.values())}
+    shares = {name: zero_gradient_share(torch, state.model, bundle, extra) for name, extra in (
+        ("float16", F16), ("bfloat16", []), ("float32", ["impl.mixed_precision=False"]))}
+    result = {"step_s": stats["train_time"], "phase_4_step_s": fb1["step_s"],
+              "train_loss": stats["train_loss"], "valid_loss": stats["valid_loss"],
+              "launches_f16": f16, "vector_launches": wide, "evals": evals,
+              "peak_memory_gib": peak_gib,
+              "zero_gradient_share": shares, "stats": stats}
+    log(f"  steps {[f'{t:.3f}' for t in stats['train_time']]} s (phase 4, bf16: "
+        f"{[f'{t:.3f}' for t in fb1['step_s']]} s); peak memory {peak_gib:.2f} GiB; train "
+        f"loss {stats['train_loss']}, valid loss {stats['valid_loss']}; f16 launches {f16} (expected {expected}); other types "
+        f"{others}; exactly-zero gradient entries of one chunk: "
+        + ", ".join(f"{k} {v:.4%}" for k, v in shares.items()))
+    check(steps == 2 and evals == 2, f"{steps} steps and {evals} evaluations, expected 2 and 2")
+    check(f16 == expected, f"float16 launches {f16}, expected phase 4's a step {expected}")
+    check(not others, f"BN launches in other types than float16: {others}")
+    check(wide == f16, f"launches at 16 bytes {wide} of {f16}")
+    check(all(map(math.isfinite, stats["train_loss"] + stats["valid_loss"])), "non-finite loss")
+    return result
+
+
+def trace_kernels(file: Path) -> dict:
+    """``{kernel: device events}`` of the four float16 kernels in a Chrome
+    trace that ``torch.profiler`` wrote."""
+    events = json.loads(file.read_text())["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {k: sum(tag in n for n in names) for k, tag in F16_KERNELS.items()}
+
+
+def phase_f16_trace(torch, bn, f16):
+    """16d: 16c with ``impl.trace=True impl.trace_steps=1``, run in
+    ``TRACE_DIR``: the trace file exists, its device events of the four
+    float16 kernels equal the launches of the traced step and its
+    evaluation (half of the two symmetric steps'), and the losses are
+    bitwise 16c's."""
+    import os
+    import shutil
+
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    TRACE_DIR.mkdir(parents=True)
+    cwd = os.getcwd()
+    os.chdir(TRACE_DIR)
+    try:
+        t0 = time.time()
+        stats, by_dtype, _, _ = f16_run(torch, bn, TRACE)
+        wall = time.time() - t0
+        file = TRACE_DIR / "torch_trace" / "rank0.json"
+        exists = file.exists()
+        size = file.stat().st_size if exists else 0
+        events = trace_kernels(file) if exists else {}
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    traced = {k: v // 2 for k, v in by_dtype["f16"].items()}
+    held = ("train_loss", "valid_loss", "grad_norm", "full_loss")
+    differ = [k for k in held if stats[k] != f16["stats"][k]]
+    result = {"trace_bytes": size, "kernel_events": events, "traced_launches": traced,
+              "step_s": stats["train_time"], "wall_s": wall, "stats_differ": differ}
+    log(f"  trace {size / 1e6:.1f} MB; float16 kernel events {events}, launches of the traced "
+        f"step and evaluation {traced}; steps {[f'{t:.3f}' for t in stats['train_time']]} s "
+        f"(untraced {[f'{t:.3f}' for t in f16['step_s']]}); stats that differ from 16c: {differ}")
+    check(exists, "no trace file in torch_trace/")
+    check(by_dtype["f16"] == f16["launches_f16"], "the traced run launched otherwise than 16c")
+    check(events == traced, f"trace events {events}, launches {traced}")
+    check(not differ, f"tracing changed {differ}")
+    return result
+
+
+def phase_multirun(torch):
+    """16e: ``python -m fullbatchtraining_tpu_torch --multirun seed=0,1``, a
+    dryrun at width 16 on the card: two jobs in order, each in its own
+    numbered directory of one sweep, each with its log, each finished."""
+    import shutil
+
+    shutil.rmtree(MULTIRUN_DIR, ignore_errors=True)
+    t0 = time.time()
+    try:
+        run = subprocess.run([sys.executable, "-m", "fullbatchtraining_tpu_torch", *MULTIRUN,
+                              f"data.path={ROOT / 'build' / 'no_cifar_here'}",
+                              f"base_dir={MULTIRUN_DIR}"],
+                             cwd=ROOT, capture_output=True, text=True, timeout=300)
+        jobs = sorted(p.parent.relative_to(MULTIRUN_DIR).as_posix()
+                      for p in MULTIRUN_DIR.glob("*/*/*/train_with_gradient_descent.log"))
+    finally:
+        shutil.rmtree(MULTIRUN_DIR, ignore_errors=True)
+    launched = [line for line in run.stdout.splitlines() if line.startswith("[multirun]")]
+    result = {"rc": run.returncode, "s": time.time() - t0, "launched": launched,
+              "job_dirs": jobs, "finished": run.stdout.count("Final validation accuracy")}
+    log(f"  rc {run.returncode} in {result['s']:.1f} s; {launched}; job directories {jobs}")
+    if run.returncode:
+        log(run.stdout[-3000:] + run.stderr[-3000:])
+    check(run.returncode == 0 and result["finished"] == 2, f"the sweep: {result}")
+    check([line.split(" : ")[0] for line in launched]
+          == ["[multirun] launching job #0", "[multirun] launching job #1"],
+          f"jobs launched {launched}")
+    check(len(jobs) == 2 and [j.rsplit("/", 1)[1] for j in jobs] == ["0", "1"]
+          and len({j.rsplit("/", 1)[0] for j in jobs}) == 1,
+          f"job directories {jobs}, expected <sweep>/0 and <sweep>/1")
+    return result
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write every measurement to this JSON file")
@@ -3179,12 +3410,24 @@ def main() -> int:
     del snapshot_run
     import shutil
     shutil.rmtree(SURFACE_DIR, ignore_errors=True)
+    phase("[16a] the float16 instances against their plain versions (chunk of 2048 images)")
+    f16_rows = phase_kernels(torch, bn, dtypes=("float16",))
+    phase("[16b] float16-compute float32-parameter hyp=fb1 step: kernels against plain versions")
+    kernels_against_plain_step(torch, bn, extra=F16, control=True, stat_control=True)
+    f16_matmul = phase_f16_matmul(torch)
+    phase("[16c] main path in float16 at full width: impl.compute_dtype=float16, 2 steps")
+    f16_full = phase_f16_full_width(torch, bn, full)
+    phase("[16d] 16c traced (impl.trace=True impl.trace_steps=1): bitwise 16c, trace = launches")
+    f16_trace = phase_f16_trace(torch, bn, f16_full)
+    phase("[16e] a two-job --multirun dryrun through the CLI")
+    multirun = phase_multirun(torch)
     family_runs = [fam_multinode, fam_memeff["plain"], fam_memeff["memory_efficient"],
                    *fam_fp32.values(), *fam_bf16.values()]
 
     kernels = []
     for name in ("stats", "apply", "bwd_reduce", "bwd_apply"):
         mine = [r for r in rows if r["kernel"] == name and r["dtype"] == "bfloat16"]
+        half = [r for r in f16_rows if r["kernel"] == name]
 
         def total(key, mine=mine):
             return LAYERS_PER_STAGE * sum(r[key] for r in mine)
@@ -3207,6 +3450,10 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": "bytes", "library_ms": total("library_ms"),
+            "ms_f16": total("ms", half), "bound_ms_f16": total("bound_ms", half),
+            "library_ms_f16": total("library_ms", half), "plain_ms_f16": total("plain_ms", half),
+            "max_abs_err_f16": max(r["max_abs_err"] for r in half),
+            "launches_f16": f16_full["launches_f16"][name],
             "stem_224": {key: next(r[key] for r in stem_rows if r["kernel"] == name
                                    and r["dtype"] == "bfloat16")
                          for key in ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")},
@@ -3216,7 +3463,9 @@ def main() -> int:
                 for r in family_rows if r["kernel"] == name}})
         k = kernels[-1]
         log(f"  {name:10s} bf16 chunk: {k['ms']:.4f} ms, {k['ms'] / k['library_ms']:.2f}x its "
-            f"library call, {k['ms'] / k['bound_ms']:.2f}x its bound")
+            f"library call, {k['ms'] / k['bound_ms']:.2f}x its bound; f16 chunk: "
+            f"{k['ms_f16']:.4f} ms, {k['ms_f16'] / k['library_ms_f16']:.2f}x its library call, "
+            f"{k['ms_f16'] / k['bound_ms_f16']:.2f}x its bound")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
@@ -3236,7 +3485,9 @@ def main() -> int:
              "analysis_plain": analysis_plain, "analysis_sweep": analysis_sweep,
              "analysis_train": analysis_train, "analysis_flatness": analysis_flatness,
              "surface": surface, "surface_plain": surface_plain, "snapshot": snapshot,
-             "tools": tools, "pth": pth,
+             "tools": tools, "pth": pth, "f16_kernel_rows": f16_rows,
+             "f16_full_width": {k: v for k, v in f16_full.items() if k != "stats"},
+             "f16_trace": f16_trace, "multirun": multirun, "f16_matmul": f16_matmul,
              "kernels": kernels, "phase_starts_s": starts}, indent=1, default=str))
     log(f"all phases passed in {time.time() - started:.0f} s; phases started at (s): "
         + ", ".join(f"{k} {v:.0f}" for k, v in starts.items()))

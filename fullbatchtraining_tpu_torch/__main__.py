@@ -19,12 +19,15 @@ The other CLIs share its start (:func:`start_job`, :func:`build_run`):
 ``python -m fullbatchtraining_tpu_torch.crunch_loss_landscape``,
 ``.verify_model_checkpoint``, ``.measure_floating_point_accuracy`` and, for
 upstream ``.pth`` files, ``.tools.import_reference_checkpoint`` and
-``.tools.export_reference_checkpoint``.
+``.tools.export_reference_checkpoint``. Each takes ``--multirun`` (or
+``-m``): every override with top-level commas sweeps its choices, and the
+jobs run one after another, job ``i`` in ``<hydra.sweep.dir>/<i>``:
+
+    python -m fullbatchtraining_tpu_torch --multirun hyp=fb1,gradreg seed=0,1
 """
 
 import logging
 import os
-import sys
 import time
 from pathlib import Path
 
@@ -41,23 +44,22 @@ def default_device(cfg) -> str:
     return "cuda"
 
 
-def start_job(args, script_name: str):
-    """``(cfg, device, world)`` of a CLI run with the overrides ``args``:
-    the config, the card (or ``+impl.device``), the process group of
+def start_job(args, script_name: str, job_num=None, sweep_stamp=None):
+    """``(cfg, device, world)`` of a CLI run, or of job ``job_num`` of a
+    sweep started at ``sweep_stamp``, with the overrides ``args``: the
+    config, the card (or ``+impl.device``), the process group of
     ``impl/setup=distributed`` and the run directory, which
     :func:`~.utils.job_startup` enters (``cfg.original_cwd`` is the
-    directory the job started in). ``--multirun`` is refused."""
+    directory the job started in)."""
     from .config import load_config
     from .parallel import setup_distributed, shutdown
     from .utils import job_startup, resolve_device
 
-    if any(a in ("--multirun", "-m") for a in args):
-        raise NotImplementedError("--multirun is not ported yet (ROADMAP.md, 'Multirun sweeps')")
     cfg = load_config(CONFIG_DIR, overrides=args)
     device = resolve_device(default_device(cfg))
     world = setup_distributed(cfg.impl.setup, device)
     try:
-        cfg = job_startup(cfg, script_name, world)
+        cfg = job_startup(cfg, script_name, world, job_num, sweep_stamp)
     except BaseException:
         shutdown(world)
         raise
@@ -78,13 +80,21 @@ def build_run(cfg, device, world):
 
 
 def main(overrides=None):
+    """A training run of ``overrides`` (the command line by default), or
+    the runs of its ``--multirun`` sweep."""
+    from .utils import hydra_main
+
+    return hydra_main(train_job, overrides)
+
+
+def train_job(overrides, job_num=None, sweep_stamp=None):
     from .config import to_yaml
     from .parallel import barrier, shutdown
     from .training import train
     from .utils import save_summary
 
-    cfg, device, world = start_job(sys.argv[1:] if overrides is None else overrides,
-                                   "train_with_gradient_descent")
+    cfg, device, world = start_job(overrides, "train_with_gradient_descent", job_num,
+                                   sweep_stamp)
     try:
         log = logging.getLogger("train")
         log.info("--------------------------------------------------\n%s", to_yaml(cfg))

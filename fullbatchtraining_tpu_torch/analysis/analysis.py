@@ -6,7 +6,9 @@ The per-chunk sweep runs over the unshuffled, unaugmented train split laid
 out ``(blocks, ranks, chunks, sub)`` with ``sub = data.batch_size //
 analysis.internal_batch_size_chunks``: on each of this rank's chunks, an
 eval-mode forward (BatchNorm from its running stats through
-``ops.bn.BNEval``, in ``promote(param dtype, float32)``, no autocast), the
+``ops.bn.BNEval``, in ``promote(param dtype, float32)``, no autocast;
+bfloat16 or float16 params are promoted to it in the forward, as the JAX
+layers promote them, and their gradients keep the params' dtype), the
 loss over this rank's ``num_blocks``, its gradient flattened, one Welford
 update, and the chunk's gradient norm kept on the device. Above
 ``impl.hbm_epoch_max_bytes`` the rows stream from the host in segments,
@@ -21,6 +23,7 @@ from __future__ import annotations
 import logging
 
 import torch
+from torch.func import functional_call
 
 from ..data.augmentations import normalize as normalize_images
 from ..parallel import all_gather
@@ -147,7 +150,12 @@ def gradient_sweep(trainer, model):
             for row in range(len(seg_images)):
                 x = (normalize_images(seg_images[row], trainer.mean, trainer.std, acc)
                      if bundle.normalize else seg_images[row].to(acc) / 255.0)
-                loss = trainer.criterion(model(x), seg_labels[row]) / num_blocks
+                if params[0].dtype == acc:
+                    logits = model(x)
+                else:   # half params take part in acc, their gradients stay half
+                    logits = functional_call(model, {n: p.to(acc) for n, p in
+                                                     zip(trainer.param_names, params)}, (x,))
+                loss = trainer.criterion(logits, seg_labels[row]) / num_blocks
                 vec = _flat(torch.autograd.grad(loss, params))
                 norms.append(torch.linalg.vector_norm(vec).to(acc))
                 wf = welford_update(wf, vec.to(acc))

@@ -10,21 +10,21 @@ It composes the shared ``config/`` tree the way Hydra 1.x does:
 * command-line overrides ``key.path=value`` with yaml-typed value parsing,
 * group switches ``hyp=gradreg`` / ``hyp/optim=adam``,
 * ``+key=value`` additions and ``~key`` deletions,
-* ``${a.b.c}`` interpolation (resolved after composition).
-
-``--multirun`` sweeps are not part of this copy yet.
+* ``${a.b.c}`` interpolation (resolved after composition),
+* ``--multirun`` choice sweeps (:func:`expand_multirun`).
 """
 
 from __future__ import annotations
 
 import copy
+import itertools
 import re
 from pathlib import Path
 from typing import Any, Iterable
 
 import yaml
 
-__all__ = ["ConfigNode", "load_config", "to_yaml", "from_dict"]
+__all__ = ["ConfigNode", "load_config", "to_yaml", "from_dict", "expand_multirun"]
 
 
 class ConfigNode(dict):
@@ -280,6 +280,57 @@ def _apply_key_override(cfg: ConfigNode, mode: str, key: str, value: Any) -> Non
         )
     else:
         node[leaf] = from_dict(value)
+
+
+_SWEEP_FLAGS = ("--multirun", "-m")
+
+
+def _split_sweep(text: str) -> list[str]:
+    """Split an override value on top-level commas (a Hydra choice sweep):
+    commas inside brackets or quotes do not split, so ``key=[a,b]`` stays
+    one choice and ``key=[a,b],[c,d]`` sweeps two."""
+    parts: list[str] = []
+    buf: list[str] = []
+    depth, quote = 0, None
+    for ch in text:
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "\"'":
+            quote = ch
+        elif ch in "[({":
+            depth += 1
+        elif ch in "])}":
+            depth -= 1
+        elif ch == "," and depth == 0:
+            parts.append("".join(buf))
+            buf = []
+            continue
+        buf.append(ch)
+    parts.append("".join(buf))
+    return parts
+
+
+def expand_multirun(args: Iterable[str]) -> tuple[bool, list[list[str]]]:
+    """``(is_multirun, jobs)`` of the command line ``args``, as Hydra's basic
+    sweeper expands it. Without ``--multirun``/``-m``, one job of the
+    overrides unchanged. With it, each override whose value has top-level
+    commas sweeps its choices, and the jobs are the Cartesian product in
+    argument order, the last override varying fastest; a ``~key`` deletion
+    passes through."""
+    args = list(args)
+    is_multi = any(a in _SWEEP_FLAGS for a in args)
+    overrides = [a for a in args if a not in _SWEEP_FLAGS]
+    if not is_multi:
+        return False, [overrides]
+    choices: list[list[str]] = []
+    for raw in overrides:
+        if "=" in raw and not raw.startswith("~"):
+            key, text = raw.split("=", 1)
+            choices.append([f"{key}={v}" for v in _split_sweep(text)])
+        else:
+            choices.append([raw])
+    return True, [list(combo) for combo in itertools.product(*choices)]
 
 
 _INTERP = re.compile(r"\$\{([a-zA-Z0-9_.]+)\}")

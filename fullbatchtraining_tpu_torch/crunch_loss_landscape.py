@@ -14,19 +14,26 @@ splits each group's pass across ranks.
 """
 
 import logging
-import sys
 from pathlib import Path
 
 
 def main(overrides=None):
+    """The loss surface of ``overrides`` (the command line by default), or one job
+    after another of its ``--multirun`` sweep."""
+    from .utils import hydra_main
+
+    return hydra_main(_job, overrides)
+
+
+def _job(overrides, job_num=None, sweep_stamp=None):
     from .__main__ import build_run, start_job
     from .parallel import barrier, shutdown
     from .training.training import Trainer, TrainState, configure_backends
     from .training.utils import load_checkpoint
     from .visualization import crunch
 
-    cfg, device, world = start_job(sys.argv[1:] if overrides is None else overrides,
-                                   "crunch_loss_landscape")
+    cfg, device, world = start_job(overrides, "crunch_loss_landscape", job_num,
+                                   sweep_stamp)
     try:
         log = logging.getLogger("crunch")
         bundle, model = build_run(cfg, device, world)

@@ -14,7 +14,6 @@ it, a measurement, not a promise of zero. It runs on CUDA unless
 """
 
 import logging
-import sys
 
 import numpy as np
 
@@ -64,11 +63,19 @@ def measure_implementation_noise(cfg, device, world=None, bundle=None) -> dict:
 
 
 def main(overrides=None):
+    """The measurement of ``overrides`` (the command line by default), or one job
+    after another of its ``--multirun`` sweep."""
+    from .utils import hydra_main
+
+    return hydra_main(_job, overrides)
+
+
+def _job(overrides, job_num=None, sweep_stamp=None):
     from .__main__ import start_job
     from .parallel import shutdown
 
-    cfg, device, world = start_job(sys.argv[1:] if overrides is None else overrides,
-                                   "measure_floating_point_accuracy")
+    cfg, device, world = start_job(overrides, "measure_floating_point_accuracy", job_num,
+                                   sweep_stamp)
     try:
         return measure_implementation_noise(cfg, device, world)
     finally:

@@ -181,10 +181,13 @@ def stat_updates_on() -> bool:
     return _stat_updates
 
 
-def bf16_affine(x: torch.Tensor, *params: torch.Tensor) -> list[torch.Tensor]:
-    """``params`` rounded to bfloat16 where ``x`` is bfloat16: the JAX step
-    casts every param to the compute dtype before the forward."""
-    return [p.to(x.dtype) if x.dtype == torch.bfloat16 else p for p in params]
+_HALF = (torch.bfloat16, torch.float16)
+
+
+def half_affine(x: torch.Tensor, *params: torch.Tensor) -> list[torch.Tensor]:
+    """``params`` rounded to ``x.dtype`` where that is bfloat16 or float16:
+    the JAX step casts every param to the compute dtype before the forward."""
+    return [p.to(x.dtype) if x.dtype in _HALF else p for p in params]
 
 
 def ema_(running: torch.Tensor, batch: torch.Tensor, momentum: float, factor: float = 1.0):
@@ -210,7 +213,8 @@ class BatchNorm2d(nn.Module):
     * the running variance takes the unbiased batch variance (``n/(n-1)``),
       normalisation uses the biased one;
     * statistics in ``promote(x.dtype, float32)``;
-    * bfloat16 inputs see ``weight``/``bias`` rounded to bfloat16 first.
+    * bfloat16 and float16 inputs see ``weight``/``bias`` rounded to their
+      dtype first.
 
     Train mode runs ``ops.bn.bn_train``; eval mode runs the ``apply`` kernel
     with ``a``, ``b`` folded from the running stats (:func:`eval_affine`),
@@ -232,7 +236,7 @@ class BatchNorm2d(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        scale, bias = bf16_affine(x, self.weight, self.bias)
+        scale, bias = half_affine(x, self.weight, self.bias)
         if not self.training:
             return eval_affine(x, scale, bias, self.running_mean, self.running_var,
                                self.epsilon)
@@ -261,7 +265,7 @@ class GroupNorm2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        weight, bias = bf16_affine(x, self.weight, self.bias)
+        weight, bias = half_affine(x, self.weight, self.bias)
         return F.group_norm(x, self.num_groups, weight, bias, 1e-5).to(x.dtype)
 
 
@@ -278,7 +282,7 @@ class LayerNorm2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        weight, bias = bf16_affine(x, self.weight, self.bias)
+        weight, bias = half_affine(x, self.weight, self.bias)
         rows = x.permute(0, 2, 3, 1)
         y = F.layer_norm(rows, (rows.shape[-1],), weight, bias, 1e-6)
         return y.to(x.dtype).permute(0, 3, 1, 2)

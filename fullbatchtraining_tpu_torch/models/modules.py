@@ -20,7 +20,7 @@ import torch
 from torch import nn
 
 from ..ops import bn as bn_ops
-from .layers import bf16_affine, ema_, eval_affine, stat_updates_on
+from .layers import ema_, eval_affine, half_affine, stat_updates_on
 
 
 class Skipper(nn.Module):
@@ -66,7 +66,7 @@ class GhostBatchNorm(nn.Module):
         return -(-batch // max(batch // self.virtual_batch_size, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        scale, bias = bf16_affine(x, self.weight, self.bias)
+        scale, bias = half_affine(x, self.weight, self.bias)
         if not self.training:
             return eval_affine(x, scale, bias, self.running_mean, self.running_var,
                                self.epsilon)

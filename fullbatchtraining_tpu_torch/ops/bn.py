@@ -14,7 +14,8 @@ Each wrapper runs its kernel for a CUDA tensor and its plain PyTorch version
 for a CPU tensor; nothing falls back from one to the other. Inside
 :func:`plain_versions` the plain versions run on CUDA too (tests and the
 chip smoke compare the two that way). Each kernel launch adds one to
-``launches[name]``.
+``launches[name]`` and to ``dtype_launches[suffix][name]`` of its input
+type (``f32``, ``bf16``, ``f16``, ``f64``).
 
 Each kernel moves 16 bytes a thread per access where it can;
 :func:`launch_plan` picks the width from ``C``, the dtype and the tensors'
@@ -22,8 +23,9 @@ addresses, and each launch at 16 bytes also adds one to
 ``vector_launches[name]``.
 
 Sums and coefficients are kept in ``promote(x.dtype, float32)``: float32 for
-float32 and bfloat16 inputs, float64 for float64 (the rule of the model's
-BatchNorm, ``_TorchBatchNorm.stat_dtype``).
+float32, bfloat16 and float16 inputs, float64 for float64 (the rule of the
+model's BatchNorm, ``_TorchBatchNorm.stat_dtype``). A float16 output
+beyond 65504 rounds to inf, as the JAX kernels' does: nothing clamps it.
 
 ``BNTrain`` runs its backward through ``BNTrainBackward``, so it can be
 differentiated twice; that double backward is plain PyTorch and counts its
@@ -52,7 +54,10 @@ layout_copies = 0
 double_backward_calls = 0
 
 _force_plain = False
-_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float64: "f64"}
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16",
+           torch.float64: "f64"}
+# launches by input type: {suffix: {name: count}}
+dtype_launches = {suffix: dict.fromkeys(launches, 0) for suffix in _SUFFIX.values()}
 # G: one wave of the blocks per SM that the kernels' __launch_bounds__ keep
 # resident (csrc MIN_BLOCKS)
 _BLOCKS_PER_SM = 3
@@ -61,7 +66,7 @@ _MIN_ELEMENTS_PER_BLOCK = 8192
 
 def reset_counts() -> None:
     global layout_copies, double_backward_calls
-    for counts in (launches, vector_launches):
+    for counts in (launches, vector_launches, *dtype_launches.values()):
         for name in counts:
             counts[name] = 0
     layout_copies = 0
@@ -81,9 +86,11 @@ def plain_versions():
 
 
 def stat_dtype(dtype: torch.dtype) -> torch.dtype:
-    """promote(dtype, float32); the kernels take float32, bfloat16, float64."""
+    """promote(dtype, float32); the kernels take float32, bfloat16, float16
+    and float64."""
     if dtype not in _SUFFIX:
-        raise TypeError(f"BatchNorm kernels take float32, bfloat16 or float64, not {dtype}")
+        raise TypeError(f"BatchNorm kernels take float32, bfloat16, float16 or float64, "
+                        f"not {dtype}")
     return torch.promote_types(dtype, torch.float32)
 
 
@@ -188,8 +195,9 @@ def _plan(x: torch.Tensor, addresses: list[int]) -> tuple[int, int]:
     return launch_plan(_sm_count(x.device.index), m, c, x.dtype, *addresses)
 
 
-def _launched(name: str, vec: int) -> None:
+def _launched(name: str, dtype: torch.dtype, vec: int) -> None:
     launches[name] += 1
+    dtype_launches[_SUFFIX[dtype]][name] += 1
     if vec > 1:
         vector_launches[name] += 1
 
@@ -209,7 +217,7 @@ def _reduce(name: str, plain, *inputs: torch.Tensor) -> torch.Tensor:
     fn = getattr(_library(), f"fbt_bn_{name}_{_SUFFIX[x.dtype]}")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _check(fn(*ptrs, ws.data_ptr(), out.data_ptr(), m, c, g, vec, stream), name)
-    _launched(name, vec)
+    _launched(name, x.dtype, vec)
     return out
 
 
@@ -227,7 +235,7 @@ def _elementwise(name: str, plain, coef: torch.Tensor, *inputs: torch.Tensor) ->
     fn = getattr(_library(), f"fbt_bn_{name}_{_SUFFIX[x.dtype]}")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _check(fn(*ptrs[:-1], coef.data_ptr(), ptrs[-1], m, c, g, vec, stream), name)
-    _launched(name, vec)
+    _launched(name, x.dtype, vec)
     return out
 
 

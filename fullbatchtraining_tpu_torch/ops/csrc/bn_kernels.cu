@@ -6,7 +6,7 @@
 // of THREADS threads takes one contiguous range of rows (blockIdx.x), so a
 // thread keeps its channels (and their per-channel coefficients or sums) in
 // registers for its whole range. A thread owns VEC neighbouring channels and
-// moves them as one access: 16 bytes (VEC = 8 in bf16, 4 in f32, 2 in f64)
+// moves them as one access: 16 bytes (VEC = 8 in bf16 and f16, 4 in f32, 2 in f64)
 // where C is a multiple of VEC and every [M, C] pointer is 16-byte aligned,
 // else VEC = 1 (the wrapper picks, the entry point checks). C / VEC threads
 // share a row, so a block covers THREADS / (C / VEC) whole rows per pass (32
@@ -20,8 +20,10 @@
 // reduce_rows (stats: x; bwd_reduce: dy, x) and affine_rows (apply: x;
 // bwd_apply: dy, x).
 //
-// Types: T is float, __nv_bfloat16 or double; every sum and coefficient is
-// in A = promote(T, float), i.e. float for float/bf16 and double for double.
+// Types: T is float, __nv_bfloat16, __half or double; every sum and
+// coefficient is in A = promote(T, float), i.e. float for float, bf16 and f16
+// and double for double. Outputs round to nearest; a float16 output beyond
+// 65504 rounds to inf, as the Pallas kernels' does (nothing clamps it).
 //
 // Bound: all four are memory-bound (a few flops per element against 2 to 8
 // bytes moved), so the least time is the bytes below over the card's memory
@@ -37,6 +39,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cstdint>
 #include <initializer_list>
 #include <type_traits>
@@ -59,12 +62,16 @@ template <> struct Acc<double> { using type = double; };
 
 __device__ __forceinline__ float to_acc(float v) { return v; }
 __device__ __forceinline__ float to_acc(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_acc(__half v) { return __half2float(v); }
 __device__ __forceinline__ double to_acc(double v) { return v; }
 
 template <typename T, typename A> __device__ __forceinline__ T from_acc(A v);
 template <> __device__ __forceinline__ float from_acc<float, float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_acc<__nv_bfloat16, float>(float v) {
   return __float2bfloat16_rn(v);
+}
+template <> __device__ __forceinline__ __half from_acc<__half, float>(float v) {
+  return __float2half_rn(v);
 }
 template <> __device__ __forceinline__ double from_acc<double, double>(double v) { return v; }
 
@@ -400,7 +407,7 @@ int run_bwd_apply(const void* dy, const void* x, const void* coef, void* dx, int
 
 }  // namespace
 
-// Plain C entry points, one per kernel and input type (f32, bf16, f64), bound
+// Plain C entry points, one per kernel and input type (f32, bf16, f16, f64), bound
 // with ctypes by ops/bn.py. G is the number of row ranges (blockIdx.x); vec
 // the channels a thread moves in one access: 1, or 16 / sizeof(T) where C and
 // the [M, C] pointers allow it.
@@ -426,4 +433,5 @@ int run_bwd_apply(const void* dy, const void* x, const void* coef, void* dx, int
 
 FBT_BN_ENTRY_POINTS(f32, float)
 FBT_BN_ENTRY_POINTS(bf16, __nv_bfloat16)
+FBT_BN_ENTRY_POINTS(f16, __half)
 FBT_BN_ENTRY_POINTS(f64, double)

@@ -574,7 +574,8 @@ def import_reference_training_checkpoint(file, cfg, state, schedule=None):
             log.warning("Checkpoint lr %.6g != schedule(%d)=%.6g: the hyp config does not "
                         "match the run that wrote this checkpoint.", lr_saved, step, lr_here)
     if scaler_state:
-        log.info("Ignoring the grad-scaler slot: bf16 needs no loss scaling.")
+        log.info("Ignoring the grad-scaler slot: the port has no loss scaling, in bfloat16 "
+                 "or float16 (the JAX package has none either).")
     return state, step
 
 

@@ -10,22 +10,29 @@ on CUDA unless ``+impl.device=cpu`` is given.
 
 import copy
 import logging
-import sys
 from pathlib import Path
 
 import torch
 
 
 def main(overrides=None):
+    """The export of ``overrides`` (the command line by default), or one job
+    after another of its ``--multirun`` sweep."""
+    from ..utils import hydra_main
+
+    return hydra_main(_job, overrides)
+
+
+def _job(overrides, job_num=None, sweep_stamp=None):
     from ..__main__ import build_run, start_job
     from ..parallel import shutdown
     from ..pretrained import export_reference_training_checkpoint, save_reference_checkpoint
     from ..training.optimizers import optim_interface
-    from ..training.training import TrainState, _DTYPES
+    from ..training.training import TrainState, _DTYPES, place_model
     from ..training.utils import load_checkpoint
 
-    cfg, device, world = start_job(sys.argv[1:] if overrides is None else overrides,
-                                   "export_reference_checkpoint")
+    cfg, device, world = start_job(overrides, "export_reference_checkpoint", job_num,
+                                   sweep_stamp)
     try:
         if cfg.impl.checkpoint.name is None:
             raise SystemExit("Set impl.checkpoint.name=<file> to choose a checkpoint.")
@@ -34,7 +41,7 @@ def main(overrides=None):
         source = Path(cfg.original_cwd) / "checkpoints" / str(cfg.impl.checkpoint.name)
         target = Path(cfg.original_cwd) / str(cfg.get("out"))
         _, model = build_run(cfg, device, world)
-        model.to(device=device, dtype=_DTYPES[cfg.impl.dtype])
+        place_model(model, device, _DTYPES[cfg.impl.dtype])
         optimizer, _ = optim_interface(model, cfg.hyp)
         use_ema = bool(cfg.get("ema", False))
         ema = None

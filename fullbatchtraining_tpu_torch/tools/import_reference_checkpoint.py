@@ -13,20 +13,27 @@ command starts in. It runs on CUDA unless ``+impl.device=cpu`` is given.
 
 import copy
 import logging
-import sys
 from pathlib import Path
 
 
 def main(overrides=None):
+    """The import of ``overrides`` (the command line by default), or one job
+    after another of its ``--multirun`` sweep."""
+    from ..utils import hydra_main
+
+    return hydra_main(_job, overrides)
+
+
+def _job(overrides, job_num=None, sweep_stamp=None):
     from ..__main__ import build_run, start_job
     from ..parallel import shutdown
     from ..pretrained import import_reference_training_checkpoint
     from ..training.optimizers import optim_interface
-    from ..training.training import TrainState, _DTYPES
+    from ..training.training import TrainState, _DTYPES, place_model
     from ..training.utils import state_payload, write_checkpoint
 
-    cfg, device, world = start_job(sys.argv[1:] if overrides is None else overrides,
-                                   "import_reference_checkpoint")
+    cfg, device, world = start_job(overrides, "import_reference_checkpoint", job_num,
+                                   sweep_stamp)
     try:
         if cfg.get("in") is None:
             raise SystemExit("Set +in=<file.pth> to choose the upstream checkpoint.")
@@ -35,7 +42,7 @@ def main(overrides=None):
         source = Path(cfg.original_cwd) / str(cfg.get("in"))
         target = Path(cfg.original_cwd) / "checkpoints" / str(cfg.impl.checkpoint.name)
         _, model = build_run(cfg, device, world)
-        model.to(device=device, dtype=_DTYPES[cfg.impl.dtype])
+        place_model(model, device, _DTYPES[cfg.impl.dtype])
         optimizer, _ = optim_interface(model, cfg.hyp)
         ema = None
         if cfg.hyp.evaluate_ema:

@@ -56,8 +56,14 @@ generator (:meth:`Trainer.layer_seed`), opened around each forward
 pass and a closure driver's re-evaluations of a block open it with the same
 seed, so they see the first pass's masks, as the JAX package hands them the
 chunk's key. ``impl.mixed_precision`` runs
-the forward under bf16 autocast with fp32 parameters and accumulators;
-logits are cast to the stat dtype.
+the forward under bf16 autocast with fp32 parameters and accumulators, and
+``impl.compute_dtype`` (bfloat16 or float16) other than ``impl.dtype``
+under autocast to it; logits are cast to the stat dtype. Parameters take
+``impl.dtype``, the norms' running stats ``promote(impl.dtype, float32)``
+(:func:`place_model`). Float16 has no loss scaling, as in the JAX package:
+a gradient below float16's range is zero. With ``impl.trace`` the first
+``impl.trace_steps`` steps run under ``torch.profiler``
+(:class:`StepTrace`).
 
 With ``analysis.type`` set, a step after which analysis is due and reads
 gradients first takes :meth:`Trainer.pre_step_gradient`, the gradient that
@@ -78,8 +84,10 @@ import contextlib
 import copy
 import dataclasses
 import logging
+import os
 import time
 from collections import defaultdict
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -103,7 +111,7 @@ from .utils import (CheckpointWriter, checkpoint_file, load_checkpoint,
 log = logging.getLogger(__name__)
 
 _DTYPES = {"float": torch.float32, "float32": torch.float32, "float64": torch.float64,
-           "bfloat16": torch.bfloat16, "double": torch.float64}
+           "bfloat16": torch.bfloat16, "float16": torch.float16, "double": torch.float64}
 # Generator streams: rank r draws its augmentations from stream r, the
 # gradient noise comes from one stream that no rank reaches
 _NOISE_STREAM = 1 << 32
@@ -121,17 +129,23 @@ class TrainState:
     ema_model: nn.Module | None = None  # hyp.evaluate_ema: EMA of params and BN stats
 
 
-def check_slice(cfg) -> None:
-    """Raise for modes the port does not run yet, naming their ROADMAP item."""
-    hyp = cfg.hyp
-    missing = [
-        (cfg.impl.get("trace", False), "impl.trace", "Profiler trace"),
-        ("float16" in (cfg.impl.dtype, cfg.impl.compute_dtype, cfg.impl.accumulation_dtype),
-         "float16 parameters or compute", "Float16 compute"),
-    ]
-    for active, what, item in missing:
-        if active:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, '{item}')")
+def place_model(model: nn.Module, device, dtype: torch.dtype) -> nn.Module:
+    """``model`` on ``device`` in channels_last, its floating params in
+    ``dtype`` and its floating buffers (the norms' running statistics) in
+    ``promote(dtype, float32)``: the JAX package casts only ``params`` to
+    ``impl.dtype`` and keeps ``batch_stats`` in the dtype of the statistics
+    its BatchNorm computes."""
+    stat = torch.promote_types(dtype, torch.float32)
+    model.to(device=device, memory_format=torch.channels_last)
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.is_floating_point():
+                p.data = p.data.to(dtype)
+        for module in model.modules():
+            for name, b in module._buffers.items():
+                if b is not None and b.is_floating_point():
+                    module._buffers[name] = b.to(stat)
+    return model
 
 
 def tree_clip_by_norm(tensors, max_norm, norm_type, eps=1e-6):
@@ -264,7 +278,7 @@ class Trainer:
                    else (torch.bfloat16 if impl.mixed_precision else self.param_dtype))
         self.compute_dtype = compute
         self.autocast_dtype = None if compute == self.param_dtype else compute
-        if self.autocast_dtype not in (None, torch.bfloat16):
+        if self.autocast_dtype not in (None, torch.bfloat16, torch.float16):
             raise NotImplementedError(f"compute dtype {compute} with parameters in "
                                       f"{self.param_dtype} has no autocast form")
         # loss and stat scalars: at least float32, float64 in float64 runs
@@ -282,8 +296,7 @@ class Trainer:
         self.mean = torch.as_tensor(bundle.mean, device=device)
         self.std = torch.as_tensor(bundle.std, device=device)
 
-        model.to(device=device, dtype=self.param_dtype, memory_format=torch.channels_last)
-        self.model = model
+        self.model = place_model(model, device, self.param_dtype)
         self.param_names = [name for name, _ in model.named_parameters()]
         self.params = list(model.parameters())
         # the seed of the stochastic layers' draws in the current chunk or block
@@ -909,11 +922,15 @@ def _to_host(metrics: dict) -> dict:
 def configure_backends(cfg) -> None:
     """cuDNN flags from ``impl.deterministic``/``impl.benchmark``; TF32 off for
     convolutions and matmuls, so float32 means float32 (bf16 speed comes from
-    ``impl.mixed_precision``)."""
+    ``impl.mixed_precision``); float16 matmuls sum in float32, as the JAX
+    dot does (cuBLAS's reduced-precision reduction off: on an H100 it moved
+    neither the error nor the time of ResNet-18's float16 products, nor of
+    a 65,536-deep one)."""
     torch.backends.cudnn.deterministic = bool(cfg.impl.get("deterministic", True))
     torch.backends.cudnn.benchmark = bool(cfg.impl.get("benchmark", False))
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
 
 
 def train(model: nn.Module, bundle: DataBundle, cfg, device="cuda", stats=None,
@@ -929,7 +946,6 @@ def train(model: nn.Module, bundle: DataBundle, cfg, device="cuda", stats=None,
     Only rank 0 writes checkpoints; every rank resumes from the same file."""
     device = resolve_device(device)
     world = world if world is not None else current_world()
-    check_slice(cfg)
     configure_backends(cfg)
     trainer = Trainer(model, bundle, cfg, device, world)
     optimizer, info = optim_interface(model, cfg.hyp)
@@ -973,6 +989,44 @@ def save_snapshot(trainer: Trainer, state: TrainState, grads, cfg):
                                         f"{cfg.name}_{cfg.model.name}_step_{state.step}.pt")
 
 
+class StepTrace:
+    """``impl.trace``: ``torch.profiler`` over host and, on a card, CUDA
+    activity, from before the loop's first step until
+    ``impl.trace_steps`` steps have run or the loop ends first (dryrun,
+    divergence, full training accuracy), as the JAX package's
+    ``jax.profiler`` hook. Its Chrome trace is
+    ``torch_trace/rank<r>.json`` in the run directory."""
+
+    def __init__(self, cfg, device, world: World, start_step: int):
+        self.prof = None
+        if not cfg.impl.get("trace", False):
+            return
+        from torch.profiler import ProfilerActivity, profile
+
+        self.last = start_step + int(cfg.impl.get("trace_steps", 3))
+        self.file = Path(os.getcwd()) / "torch_trace" / f"rank{world.rank}.json"
+        activities = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self.prof = profile(activities=activities)
+        self.prof.start()
+        log.info("Capturing a torch.profiler trace of %d steps to %s",
+                 self.last - start_step, self.file)
+
+    def before_step(self, step: int) -> None:
+        if self.prof is not None and step >= self.last:
+            self.stop()
+
+    def stop(self) -> None:
+        if self.prof is None:
+            return
+        self.prof.stop()
+        self.file.parent.mkdir(parents=True, exist_ok=True)
+        self.prof.export_chrome_trace(str(self.file))
+        log.info("Wrote the torch.profiler trace %s", self.file)
+        self.prof = None
+
+
 def _train_loop(trainer: Trainer, state: TrainState, bundle: DataBundle, cfg, writer, stats,
                 driver=None):
     hyp = cfg.hyp
@@ -985,7 +1039,9 @@ def _train_loop(trainer: Trainer, state: TrainState, bundle: DataBundle, cfg, wr
     reads_grads = analysis.type is not None and (analysis.get("measure_grad_norm", False)
                                                  or analysis.get("check_momentum", False))
     snapshot_every = analysis.get("save_model_every_nth_step")
+    trace = StepTrace(cfg, trainer.device, trainer.world, state.step)
     while state.step < hyp.steps:
+        trace.before_step(state.step)
         t0 = time.time()
         # the configured mode before hyp.train_switch_stochastic, the other
         # from it on (the JAX package's condition, not the reference's latch)
@@ -1063,4 +1119,5 @@ def _train_loop(trainer: Trainer, state: TrainState, bundle: DataBundle, cfg, wr
                 writer.save(state, driver_state)
         if cfg.dryrun:
             break
+    trace.stop()   # the loop ended before impl.trace_steps steps: flush
     return state, stats

@@ -1,5 +1,6 @@
-"""Run directory, logging, seeding and summary tables
-(``fullbatchtraining_tpu/utils.py``: job_startup, save_summary, save_to_table).
+"""Run directory, logging, seeding, ``--multirun`` sweeps and summary tables
+(``fullbatchtraining_tpu/utils.py``: job_startup, hydra_main, save_summary,
+save_to_table).
 """
 
 from __future__ import annotations
@@ -33,12 +34,26 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def job_startup(cfg, script_name: str = "job", world: World | None = None):
-    """Finalize the config, create and enter ``<base_dir>/<date>/<time>``
-    (Hydra's run dir, or ``hydra.run.dir``; ``_rank<r>`` appended on ranks
-    other than 0), log to stdout and a file, seed. An unset ``seed`` is drawn
-    from the system's entropy; with several ranks in ``world``, rank 0's
-    seed wins on every rank, through one broadcast."""
+_EPOCH = datetime.datetime(1970, 1, 1)
+
+
+def _shared_stamp(world: World, stamp: datetime.datetime) -> datetime.datetime:
+    """Rank 0's naive ``stamp``, on every rank, to the microsecond."""
+    us = broadcast(world, (stamp - _EPOCH) // datetime.timedelta(microseconds=1))
+    return _EPOCH + datetime.timedelta(microseconds=us)
+
+
+def job_startup(cfg, script_name: str = "job", world: World | None = None, job_num=None,
+                sweep_stamp=None):
+    """Finalize the config, create and enter the run directory, log to
+    stdout and a file, seed. A single run's directory is
+    ``<base_dir>/<date>/<time>`` (Hydra's run dir, or ``hydra.run.dir``);
+    job ``job_num`` of a ``--multirun`` sweep started at ``sweep_stamp``
+    takes ``<sweep dir>/<job_num>`` (``hydra.sweep.dir``, the same pattern
+    at the sweep's time). Ranks other than 0 append ``_rank<r>``. An unset
+    ``seed`` is drawn from the system's entropy; with several ranks in
+    ``world``, rank 0's seed and sweep stamp win on every rank, through one
+    broadcast each."""
     world = world if world is not None else World()
     cfg.original_cwd = os.getcwd()
     if cfg.seed is None:
@@ -46,12 +61,16 @@ def job_startup(cfg, script_name: str = "job", world: World | None = None):
     if world.size > 1:
         cfg.seed = broadcast(world, int(cfg.seed))
     hydra = cfg.pop("_hydra", {})
-    now = datetime.datetime.now()
-    if hydra.get("run.dir") is not None:
-        run_dir = Path(_NOW_PATTERN.sub(lambda m: now.strftime(m.group(1)),
-                                        str(hydra["run.dir"])))
+    now = sweep_stamp or datetime.datetime.now()
+    if job_num is not None and world.size > 1:
+        now = _shared_stamp(world, now)
+    dir_key = "run.dir" if job_num is None else "sweep.dir"
+    if hydra.get(dir_key) is not None:
+        run_dir = Path(_NOW_PATTERN.sub(lambda m: now.strftime(m.group(1)), str(hydra[dir_key])))
     else:
         run_dir = Path(cfg.base_dir) / now.strftime("%Y-%m-%d") / now.strftime("%H-%M-%S.%f")
+    if job_num is not None:
+        run_dir = run_dir / str(job_num)
     if world.rank:
         run_dir = run_dir.with_name(f"{run_dir.name}_rank{world.rank}")
     run_dir = run_dir.resolve()  # the log path must survive the chdir below
@@ -69,6 +88,31 @@ def job_startup(cfg, script_name: str = "job", world: World | None = None):
     random.seed(cfg.seed)
     torch.manual_seed(cfg.seed)
     return cfg
+
+
+def hydra_main(job, argv=None):
+    """A CLI's entry, as ``@hydra.main`` with the basic launcher: one run
+    of ``job(overrides)``, or under ``--multirun``/``-m`` the jobs of
+    :func:`~.config.expand_multirun` in order, ``job(overrides,
+    job_num=i, sweep_stamp=t)`` with one stamp for the sweep, each from the
+    directory the sweep started in. A failing job ends the sweep. Returns
+    the run's result, or the list of the jobs' results."""
+    from .config import expand_multirun
+
+    is_multi, jobs = expand_multirun(sys.argv[1:] if argv is None else argv)
+    if not is_multi:
+        return job(jobs[0])
+    launch_cwd = os.getcwd()
+    sweep_stamp = datetime.datetime.now()
+    results = []
+    for i, overrides in enumerate(jobs):
+        print(f"[multirun] launching job #{i} : {' '.join(overrides)}", flush=True)
+        os.chdir(launch_cwd)
+        try:
+            results.append(job(overrides, job_num=i, sweep_stamp=sweep_stamp))
+        finally:
+            os.chdir(launch_cwd)
+    return results
 
 
 def is_main_process() -> bool:

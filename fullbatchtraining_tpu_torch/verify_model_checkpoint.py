@@ -9,7 +9,6 @@ loop does. It runs on CUDA unless ``+impl.device=cpu`` is given.
 """
 
 import logging
-import sys
 from pathlib import Path
 
 log = logging.getLogger("verify")
@@ -46,11 +45,19 @@ def verify_checkpoint(cfg, file, device, world=None, bundle=None) -> dict:
 
 
 def main(overrides=None):
+    """The check of ``overrides`` (the command line by default), or one job
+    after another of its ``--multirun`` sweep."""
+    from .utils import hydra_main
+
+    return hydra_main(_job, overrides)
+
+
+def _job(overrides, job_num=None, sweep_stamp=None):
     from .__main__ import start_job
     from .parallel import shutdown
 
-    cfg, device, world = start_job(sys.argv[1:] if overrides is None else overrides,
-                                   "verify_model_checkpoint")
+    cfg, device, world = start_job(overrides, "verify_model_checkpoint", job_num,
+                                   sweep_stamp)
     try:
         if cfg.impl.checkpoint.name is None:
             raise SystemExit("Set impl.checkpoint.name=<file> to choose a checkpoint.")

@@ -152,7 +152,7 @@ def test_mean_var_cotangents(shape, dtype):
 
 def test_kernels_take_only_their_dtypes():
     with pytest.raises(TypeError):
-        bn.stats(torch.zeros(4, 3, dtype=torch.float16))
+        bn.stats(torch.zeros(4, 3, dtype=torch.int32))
 
 
 @pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
@@ -194,7 +194,7 @@ def test_batchnorm2d_matches_flax(train):
 # --------------------------------------------------------------------------
 
 H100_SMS = 132
-KERNEL_DTYPES = [torch.float32, torch.bfloat16, torch.float64]
+KERNEL_DTYPES = [torch.float32, torch.bfloat16, torch.float16, torch.float64]
 # ResNet-18's BN inputs [M, C] on CIFAR (32x32): stages at H*W = 1024 ... 16,
 # for chunks of 2048 (the bf16 bench shape) and 512 images (fp32, evaluation)
 RESNET18_STAGES = [(1024, 64), (256, 128), (64, 256), (16, 512)]

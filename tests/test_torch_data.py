@@ -56,7 +56,7 @@ def test_construct_datasets_matches(config_dir, cache_dirs):
         assert ours.labels.dtype == ref.labels.dtype
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float64"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16", "float64"])
 def test_normalize_matches(dtype):
     images = np.random.default_rng(0).integers(0, 256, (4, 6, 6, 3), dtype=np.uint8)
     mean, std = [0.49, 0.48, 0.45], [0.25, 0.24, 0.26]

@@ -194,3 +194,65 @@ def test_construct_datasets_reads_the_trees(name, tmp_path, config_dir):
     for ours, ref in ((train, ref_train), (valid, ref_valid)):
         np.testing.assert_array_equal(ours.images, ref.images)
         np.testing.assert_array_equal(ours.labels, ref.labels)
+
+
+# --------------------------------------------------------------------------
+# CIFAR-100's python pickles
+# --------------------------------------------------------------------------
+
+def _cifar100_pickles(base, sizes=(("train", 12), ("test", 5))):
+    """Tiny ``cifar-100-python/{train,test}`` pickles in the upstream layout:
+    bytes keys, ``data`` rows of 3072 uint8 (channel planes, then rows),
+    ``fine_labels`` (100 classes) and ``coarse_labels`` (20 superclasses).
+    Returns ``{split: entry}``."""
+    import pickle
+
+    rng = np.random.default_rng(4)
+    folder = base / "cifar-100-python"
+    folder.mkdir(parents=True)
+    entries = {}
+    for split, n in sizes:
+        entries[split] = {
+            b"data": rng.integers(0, 256, (n, 3072), dtype=np.uint8),
+            b"fine_labels": [int(v) for v in rng.integers(0, 100, n)],
+            b"coarse_labels": [int(v) for v in rng.integers(0, 20, n)],
+            b"filenames": [f"img_{split}_{i}.png".encode() for i in range(n)],
+            b"batch_label": f"{split} batch".encode()}
+        with open(folder / split, "wb") as handle:
+            pickle.dump(entries[split], handle)
+    return entries
+
+
+def test_cifar100_pickles_match_jax(tmp_path):
+    """``_load_cifar_pickles`` of both packages on the same pickles: the
+    same images, NHWC from the channel planes, and the fine labels (the
+    100-class level; the coarse superclasses are not the labels)."""
+    entries = _cifar100_pickles(tmp_path)
+    ours = datasets._load_cifar_pickles(tmp_path, "CIFAR100")
+    theirs = jax_datasets._load_cifar_pickles(tmp_path, "CIFAR100")
+    for (images, labels), (ref_images, ref_labels), split in zip(ours, theirs,
+                                                                  ("train", "test")):
+        entry = entries[split]
+        np.testing.assert_array_equal(images, ref_images)
+        np.testing.assert_array_equal(labels, ref_labels)
+        assert images.dtype == np.uint8 and images.shape == (len(labels), 32, 32, 3)
+        planes = entry[b"data"].reshape(-1, 3, 32, 32)
+        np.testing.assert_array_equal(images[:, 5, 7, 2], planes[:, 2, 5, 7])
+        np.testing.assert_array_equal(labels, entry[b"fine_labels"])
+        assert list(labels) != entry[b"coarse_labels"]
+    assert datasets._load_cifar_pickles(tmp_path / "absent", "CIFAR100") is None
+
+
+def test_cifar100_datasets_match_jax(tmp_path, config_dir):
+    """``data=CIFAR100`` with ``data.path`` at the pickles: both packages'
+    ``construct_datasets`` give the same train and validation sets, cut to
+    ``data.size``, 100 classes."""
+    _cifar100_pickles(tmp_path)
+    cfg = load_config(config_dir, overrides=["data=CIFAR100", f"data.path={tmp_path}",
+                                             "data.size=10"])
+    train, valid = datasets.construct_datasets(cfg.data)
+    jtrain, jvalid = jax_datasets.construct_datasets(cfg.data, can_download=False)
+    for ours, ref, n in ((train, jtrain, 10), (valid, jvalid, 5)):
+        np.testing.assert_array_equal(ours.images, ref.images)
+        np.testing.assert_array_equal(ours.labels, ref.labels)
+        assert len(ours) == n and ours.classes == ref.classes == 100

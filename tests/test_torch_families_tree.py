@@ -62,7 +62,8 @@ def test_activation_estimate_matches_jax(case, monkeypatch):
     pixels = spec.get("pixels", 32)
     tmodel = build(case, monkeypatch, "port")
     jmodel = build(case, monkeypatch, "jax")
-    for dtype, jdtype in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
+    for dtype, jdtype in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16),
+                          (torch.float16, jnp.float16)):
         assert (estimate_activation_bytes(tmodel, pixels, 3, dtype)
                 == jax_estimate_activation_bytes(jmodel, pixels, 3, jdtype))
 
@@ -173,3 +174,34 @@ def test_wsconv_bf16_standardization(shape):
     print(f"WSConv2d {shape}: relative L2 error in bf16, port {error(ours):.3e}, "
           f"JAX way {error(theirs):.3e}")   # shown with pytest -s
     assert error(ours) < 2e-3 < 3e-3 < error(theirs), (error(ours), error(theirs))
+
+
+@pytest.mark.parametrize("shape", [(128, 128, 3), (1536, 768, 1), (3, 16, 3)])
+def test_wsconv_float16_standardization(shape):
+    """The bf16 check above in float16 (``impl.compute_dtype=float16``
+    autocasts the convolution, not the standardization): against the
+    float64 weight the port's, standardized in float32 and rounded once, is
+    within 2.5e-4 (one float16 rounding, 8x finer than bf16's), the JAX
+    way's, standardized in float16, beyond 3.75e-4."""
+    from fullbatchtraining_tpu_torch.models.layers import WSConv2d
+
+    cin, cout, k = shape
+    conv = WSConv2d(cin, cout, k, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        conv.gain.uniform_(0.5, 1.5, generator=torch.Generator().manual_seed(1))
+        exact = conv.double().standardized_weight()
+        with torch.autocast("cpu", dtype=torch.float16):
+            ours = conv.float().standardized_weight()
+        assert ours.dtype == torch.float32
+        ours = ours.to(torch.float16).double()
+    kernel = jnp.asarray(conv.weight.detach().numpy().transpose(2, 3, 1, 0), jnp.float16)
+    gain = jnp.asarray(conv.gain.detach().numpy(), jnp.float16)
+    mean = jnp.mean(kernel, axis=(0, 1, 2), keepdims=True)
+    var = jnp.var(kernel, axis=(0, 1, 2), keepdims=True, ddof=1)
+    w = (kernel - mean) * jax.lax.rsqrt(jnp.maximum(var * conv.fan_in, 1e-4)) * gain
+    theirs = torch.from_numpy(np.asarray(w.astype(jnp.float32)).transpose(3, 2, 0, 1).copy())
+
+    def error(w):
+        return ((w.double() - exact).norm() / exact.norm()).item()
+
+    assert error(ours) < 2.5e-4 < 3.75e-4 < error(theirs), (error(ours), error(theirs))

@@ -120,19 +120,15 @@ def test_cli_dryrun_default_recipe(tmp_path):
     assert "Final validation accuracy" in run.stdout
 
 
-BOUNDARIES = {
-    "trace": ["impl.trace=True"],
-    "float16-compute": ["impl.compute_dtype=float16"],
-    "float16-params": ["impl.dtype=float16"],
-}
-# the item a refusal must name, where it is known
-BOUNDARY_ITEMS = {}
 # full-width families run their dryrun step on blocks of 16 images
 SMALL_BLOCK = ["data.batch_size=16"]
 # modes that raised until the streamed epochs, other datasets, the optimizer
-# zoo, the other model families and norms, analysis and the loss landscape's
-# snapshots came in
+# zoo, the other model families and norms, analysis, the loss landscape's
+# snapshots, the profiler trace and float16 came in
 FORMER_BOUNDARIES = {
+    "trace": ["impl.trace=True"],
+    "float16-compute": ["impl.compute_dtype=float16"],
+    "float16-params": ["impl.dtype=float16"],
     "model-snapshots": ["analysis=full", "analysis.save_model_every_nth_step=1"],
     "analysis": ["analysis=full", "analysis.compute_gradient_SNR=True",
                  "analysis.compute_gradient_noise_scale=True", "analysis.compute_flatness=True"],
@@ -160,28 +156,6 @@ FORMER_BOUNDARIES = {
     "layernorm": ["model.normalization=LayerNorm"],
     "standardized": ["model.convolution=Standardized"],
 }
-
-
-@pytest.mark.parametrize("case", list(BOUNDARIES))
-def test_modes_outside_the_slice_raise(case, config_dir):
-    """Each mode the port does not run yet raises NotImplementedError naming
-    an item that ROADMAP.md has."""
-    from fullbatchtraining_tpu_torch.config import load_config
-    from fullbatchtraining_tpu_torch.data import construct_databundle
-    from fullbatchtraining_tpu_torch.models import construct_model
-    from fullbatchtraining_tpu_torch.training import train
-
-    swaps_model = any(o.startswith("model=") for o in BOUNDARIES[case])
-    base = [o for o in TINY if not (swaps_model and o.startswith("model"))]
-    cfg = load_config(config_dir, overrides=base + BOUNDARIES[case])
-    with pytest.raises(NotImplementedError) as err:
-        bundle = construct_databundle(cfg.data, dryrun=True)
-        model = construct_model(cfg.model, bundle.channels, bundle.classes)
-        train(model, bundle, cfg, device="cpu")
-    item = re.search(r"ROADMAP\.md, '([^']+)'", str(err.value))
-    assert item, str(err.value)
-    assert f"**{item.group(1)}" in (ROOT / "ROADMAP.md").read_text(), item.group(1)
-    assert item.group(1) == BOUNDARY_ITEMS.get(case, item.group(1))
 
 
 @pytest.mark.parametrize("case", list(FORMER_BOUNDARIES))
@@ -259,9 +233,3 @@ def test_semi_stochastic_without_a_store_changes_nothing(config_dir):
     assert {k: v for k, v in ours_stats.items() if k != "train_time"} == {
         k: v for k, v in ref_stats.items() if k != "train_time"}
 
-
-def test_multirun_raises():
-    from fullbatchtraining_tpu_torch.__main__ import main
-
-    with pytest.raises(NotImplementedError, match="Multirun sweeps"):
-        main(["--multirun", "hyp=fb1", "seed=0,1"])

@@ -15,8 +15,8 @@ row count, and an operand 1 element off 16-byte alignment; the reductions
 must be bitwise repeatable at each. BNEval, the eval-mode BatchNorm, is held
 against its plain versions. Tolerances,
 relative to the size of the terms summed: float32 sums 1e-5 and
-bfloat16-input sums 1e-5 (float32 accumulation in another order), float64
-1e-12; elementwise outputs 2 ulp of the output dtype (an FMA may round once
+bfloat16- and float16-input sums 1e-5 (float32 accumulation in another
+order), float64 1e-12; elementwise outputs 2 ulp of the output dtype (an FMA may round once
 where the plain version rounds twice).
 """
 
@@ -33,9 +33,10 @@ SGD_SHAPES = [(b * hw, c) for b in (128, 32) for hw, c in ((1024, 64), (256, 128
 IMAGENET_SHAPES = [(128 * 224 * 224, 64)]
 EDGE_C = [3, 12, 64, 520, 4096]
 EDGE_M = [1, 333, 16 * 512]
-DTYPES = [torch.float32, torch.bfloat16, torch.float64]
-SUM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-5, torch.float64: 1e-12}
-ULP = {torch.float32: 2.0 ** -23, torch.bfloat16: 2.0 ** -7, torch.float64: 2.0 ** -52}
+DTYPES = [torch.float32, torch.bfloat16, torch.float16, torch.float64]
+SUM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-5, torch.float16: 1e-5, torch.float64: 1e-12}
+ULP = {torch.float32: 2.0 ** -23, torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10,
+       torch.float64: 2.0 ** -52}
 
 
 @pytest.fixture
@@ -170,7 +171,7 @@ def test_wrong_input_raises(cuda):
     with pytest.raises(ValueError):
         bn.stats(x.t())  # not contiguous
     with pytest.raises(TypeError):
-        bn.stats(x.half())
+        bn.stats(x.to(torch.int32))
     with pytest.raises(ValueError):
         bn.apply(x, torch.zeros((2, 8), device=cuda, dtype=torch.float64))
 

@@ -179,7 +179,14 @@ def test_cli_needs_a_card_unless_told_otherwise(module, monkeypatch):
 
 
 @pytest.mark.parametrize("module", CLIS)
-def test_cli_refuses_multirun(module):
+def test_cli_refuses_multirun(module, monkeypatch):
+    """Each CLI once refused ``--multirun`` (the name is kept from then); it
+    now runs the sweep's jobs in order through ``utils.hydra_main``, each
+    with its number and the sweep's one stamp."""
     cli = importlib.import_module(f"{PACKAGE}.{module}")
-    with pytest.raises(NotImplementedError, match="Multirun sweeps"):
-        cli.main(["--multirun", *TINY, "seed=0,1"])
+    calls = []
+    monkeypatch.setattr(cli, "_job", lambda overrides, job_num=None, sweep_stamp=None:
+                        calls.append((overrides[-1], job_num, sweep_stamp)))
+    cli.main(["--multirun", *TINY, "seed=0,1"])
+    assert [c[:2] for c in calls] == [("seed=0", 0), ("seed=1", 1)]
+    assert calls[0][2] is not None and calls[0][2] == calls[1][2]
