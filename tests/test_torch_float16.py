@@ -2,21 +2,31 @@
 ships, on the CPU.
 
 Every tolerance is a control: how far the JAX package moves the same
-quantity by itself, either from its float32 computation on the same inputs
-or from inputs 2^-11 (one float16 ulp) off, the larger of the two. The port
-must lie no further from the JAX half-precision result than that:
+quantity by itself when its half-precision run starts from inputs (or
+weights) 2^-11 off, one float16 rounding step. Where the JAX package adds
+float16 values one at a time (the per-leaf squared norms behind
+``grad_norm`` and ``full_loss``, in its tree's leaf order), a second control
+is its own run with those leaves added in the reverse order: the port adds
+them in another order too. The port must lie no further from the JAX
+half-precision result than that. The JAX float32 result is no tolerance:
+where float16 changes a result beyond rounding noise, the port must lie
+strictly closer to the JAX float16 result than to the float32 one, so a port
+that computed in float32 fails:
 
 * ``bn_train`` in float16 against ``pallas_bn.bn_train_reference`` (and the
   Pallas kernels in interpret mode where they tile): ``y``, ``mean``,
-  ``var`` and the gradients, element by element;
+  ``var`` and the gradients, element by element; ``y`` and ``dx`` closer to
+  float16 than to float32;
 * a ResNet-20 (width 8) in float16: train-mode logits and the parameter
-  gradient, in relative L2;
+  gradient, in relative L2; the gradient closer to float16;
 * 2 ``hyp=fb1`` steps of ``train()`` under ``impl.compute_dtype=float16``
   and under ``impl.dtype=float16`` from the JAX weights: params and
-  running stats in relative L2, and each step's losses and gradient norm.
-  A scalar's control is one sample of rounding noise, and two roundings of
-  the same value can each be half an ulp off, so a scalar may lie twice its
-  control from JAX;
+  running stats in relative L2, each step's losses and gradient norm; the
+  running stats (and float16 params) closer to float16;
+* one chunk's gradient at the weights of those 2 JAX steps, through the
+  port's ``Trainer``: within the control, closer to float16, and with its
+  count of exactly-zero entries (float16 underflow adds to float32's)
+  closer to the JAX float16 count than to the float32 one;
 * under ``impl.dtype=bfloat16`` and ``float16`` the port keeps its running
   stats in float32, as the JAX ``batch_stats``; after the 2 steps both
   packages' eval-mode logits on the JAX weights agree within the control.
@@ -36,8 +46,11 @@ import pytest
 import torch
 
 import fullbatchtraining_tpu.models.models as jax_models
+import fullbatchtraining_tpu.training.training as jax_training
 from fullbatchtraining_tpu.config import load_config as jax_load_config
 from fullbatchtraining_tpu.data import construct_databundle as jax_databundle
+from fullbatchtraining_tpu.data.augmentations import normalize as jax_normalize
+from fullbatchtraining_tpu.models.modules import get_loss_fn as jax_loss_fn
 from fullbatchtraining_tpu.ops import pallas_bn
 from fullbatchtraining_tpu.parallel import make_mesh
 from fullbatchtraining_tpu.training.training import train as jax_train
@@ -47,13 +60,12 @@ from fullbatchtraining_tpu_torch.data import construct_databundle
 from fullbatchtraining_tpu_torch.models import construct_model
 from fullbatchtraining_tpu_torch.ops import bn
 from fullbatchtraining_tpu_torch.training import train
-from fullbatchtraining_tpu_torch.training.training import place_model
+from fullbatchtraining_tpu_torch.training.training import Trainer, place_model
 
 from test_torch_training_stochastic import one_thread  # noqa: F401  (autouse)
 
 CONFIG = pathlib.Path(__file__).resolve().parent.parent / "config"
 ULP16 = 2.0 ** -11      # float16's relative rounding step, the perturbation's size
-SCALAR_FACTOR = 2       # a scalar may lie twice its control from JAX
 
 
 def _perturbed(a, seed):
@@ -69,6 +81,10 @@ def _f64(a):
 def _rel_l2(a, b):
     a, b = (np.concatenate([np.ravel(_f64(x)) for x in jax.tree.leaves(t)]) for t in (a, b))
     return np.linalg.norm(a - b) / np.linalg.norm(b)
+
+
+def _zeros(tree):
+    return sum(int(np.sum(_f64(x) == 0)) for x in jax.tree.leaves(tree))
 
 
 # --------------------------------------------------------------------------
@@ -112,13 +128,10 @@ def test_bn_train_float16_matches_jax(shape, _interpret):
     ours = [t.detach().double().numpy() for t in (y, mean, var, *grads)]
 
     ref = pallas_bn.bn_train_reference
-    control = np.maximum(
-        [np.abs(a - b).max() for a, b in zip(_jax_bn(ref, x, scale, bias, cot, jnp.float16),
-                                             _jax_bn(ref, x, scale, bias, cot, jnp.float32))],
-        [np.abs(a - b).max() for a, b in zip(
-            _jax_bn(ref, x, scale, bias, cot, jnp.float16),
-            _jax_bn(ref, _perturbed(x, 1), _perturbed(scale, 2), _perturbed(bias, 3),
-                    _perturbed(cot, 4), jnp.float16))])
+    half = _jax_bn(ref, x, scale, bias, cot, jnp.float16)
+    control = [np.abs(a - b).max() for a, b in zip(half, _jax_bn(
+        ref, _perturbed(x, 1), _perturbed(scale, 2), _perturbed(bias, 3), _perturbed(cot, 4),
+        jnp.float16))]
     oracles = [("reference", ref)]
     if pallas_bn.supported(jnp.asarray(x, jnp.float16)):
         oracles.append(("pallas", pallas_bn.bn_train))
@@ -127,6 +140,11 @@ def test_bn_train_float16_matches_jax(shape, _interpret):
         for what, o, t, tol in zip(("y", "mean", "var", "dx", "dscale", "dbias"), ours, theirs,
                                    control):
             assert np.abs(o - t).max() <= tol, (name, what, np.abs(o - t).max(), tol)
+    # the float16 outputs; the statistics and dscale, dbias are float32 sums
+    # of the same float16 inputs in both runs
+    single = _jax_bn(ref, x, scale, bias, cot, jnp.float32)
+    for what, i in (("y", 0), ("dx", 3)):
+        assert np.abs(ours[i] - half[i]).max() < np.abs(ours[i] - single[i]).max(), what
 
 
 # --------------------------------------------------------------------------
@@ -178,11 +196,13 @@ def test_resnet20_float16_forward_and_gradient_match_jax():
         p.data.copy_(g)
     ours_grads = export_jax_variables(probe)["params"]
 
-    for what, ours, ref, controls in (
-            ("logits", logits.detach().double().numpy(), theirs[0], (f32[0], off[0])),
-            ("gradient", ours_grads, theirs[1], (f32[1], off[1]))):
-        tol = max(_rel_l2(c, ref) for c in controls)
+    for what, ours, ref, control in (
+            ("logits", logits.detach().double().numpy(), theirs[0], off[0]),
+            ("gradient", ours_grads, theirs[1], off[1])):
+        tol = _rel_l2(control, ref)
         assert _rel_l2(ours, ref) <= tol, (what, _rel_l2(ours, ref), tol)
+    # the logits are one float16 rounding from the float32 ones on either side
+    assert _rel_l2(ours_grads, theirs[1]) < _rel_l2(ours_grads, f32[1])
 
 
 # --------------------------------------------------------------------------
@@ -203,6 +223,10 @@ CASES = {
     "bfloat16-params": ["impl.dtype=bfloat16"],
 }
 HELD = ("train_loss", "valid_loss", "full_loss", "grad_norm")
+# the JAX runs each case's tolerances come from: weights 2^-11 off, and
+# where the squared norms are float16 sums, those sums in the reverse order
+CONTROLS = {"float16-compute": ("perturbed",), "float16-params": ("perturbed", "reversed"),
+            "bfloat16-params": ("perturbed",)}
 
 
 @functools.cache
@@ -214,12 +238,18 @@ def _initial():
                                                       bundle.channels))
 
 
+def _reversed_sqnorm(tree):
+    return sum(jnp.sum(jnp.square(leaf)) for leaf in reversed(jax.tree.leaves(tree)))
+
+
 @functools.cache
-def _jax_run(case, perturb=False):
-    """The JAX ``train()`` of ``case`` from ``_initial()`` (its params each
-    ``ULP16`` off where ``perturb``): ``(params, batch_stats, stats)``."""
+def _jax_run(case, control=None):
+    """The JAX ``train()`` of ``case`` from ``_initial()``: as it ships, or
+    with its params each ``ULP16`` off (``control="perturbed"``), or with
+    every squared norm summed over the leaves in the reverse order
+    (``control="reversed"``). Returns ``(params, batch_stats, stats)``."""
     variables = _initial()
-    if perturb:
+    if control == "perturbed":
         variables = {**variables, "params": jax.tree.map(
             lambda a: _perturbed(a, 7).astype(np.float32), variables["params"])}
     cfg = jax_load_config(CONFIG, overrides=BASE + CASES[case])
@@ -228,8 +258,14 @@ def _jax_run(case, perturb=False):
     model = jax_models.construct_model(cfg.model, bundle.channels, bundle.classes)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax_models, "initialize_model", lambda *a, **k: variables)
+        if control == "reversed":
+            mp.setattr(jax_training, "tree_sqnorm", _reversed_sqnorm)
         state, stats = jax_train(model, bundle, mesh, cfg)
     return jax.device_get(state.params), jax.device_get(state.batch_stats), stats
+
+
+def _controls(case):
+    return [_jax_run(case, control) for control in CONTROLS[case]]
 
 
 def _port_run(case):
@@ -243,18 +279,75 @@ def _port_run(case):
 
 @pytest.mark.parametrize("case", ["float16-compute", "float16-params"])
 def test_train_float16_matches_jax(case):
+    """Under float32 master weights (``float16-compute``) the params carry
+    float16 noise in any order of rounding, as far from the JAX float16
+    params as from the float32 ones; the running stats, means of float16
+    activations, and float16 params do not."""
     model, _, stats = _port_run(case)
     params, batch_stats, ref_stats = _jax_run(case)
-    controls = [_jax_run("float32"), _jax_run(case, perturb=True)]
+    single = _jax_run("float32")
     ours = export_jax_variables(copy.deepcopy(model).double())
     for i, (what, ref) in enumerate((("params", params), ("batch_stats", batch_stats))):
-        tol = max(_rel_l2(c[i], ref) for c in controls)
+        tol = max(_rel_l2(c[i], ref) for c in _controls(case))
         assert _rel_l2(ours[what], ref) <= tol, (what, _rel_l2(ours[what], ref), tol)
+        if what == "batch_stats" or case == "float16-params":
+            assert _rel_l2(ours[what], ref) < _rel_l2(ours[what], single[i]), what
     for key in HELD:
         for step, (o, r) in enumerate(zip(stats[key], ref_stats[key])):
-            tol = SCALAR_FACTOR * max(abs(c[2][key][step] - r) for c in controls)
+            tol = max(abs(c[2][key][step] - r) for c in _controls(case))
             assert abs(o - r) <= tol, (key, step, o, r, tol)
     assert stats["train_acc"] == ref_stats["train_acc"]
+
+
+@pytest.mark.parametrize("case", ["float16-compute", "float16-params"])
+def test_float16_gradient_underflow_matches_jax(case):
+    """One chunk's gradient (8 training images) at the weights of the 2 JAX
+    steps, the port's through its ``Trainer`` (autocast under
+    ``float16-compute``), the JAX one as its step takes it: params cast to
+    float16. Float16 underflows entries to exactly zero that float32 keeps."""
+    params, batch_stats, _ = _jax_run(case)
+    cfg = load_config(CONFIG, overrides=BASE + CASES[case])
+    bundle = construct_databundle(cfg.data, cfg.impl, cfg.hyp, seed=0)
+    images, labels = np.asarray(bundle.train.images[:8]), np.asarray(bundle.train.labels[:8])
+    jcfg = jax_load_config(CONFIG, overrides=BASE + CASES[case])
+    jmodel = jax_models.construct_model(jcfg.model, bundle.channels, bundle.classes)
+    criterion = jax_loss_fn(jcfg.hyp, len(labels))
+
+    def jax_grads(p, dtype):
+        def loss(p_):
+            x = jax_normalize(jnp.asarray(images), np.asarray(bundle.mean),
+                              np.asarray(bundle.std), dtype)
+            logits, _ = jmodel.apply({"params": jax.tree.map(lambda a: a.astype(dtype), p_),
+                                      "batch_stats": batch_stats}, x, train=True,
+                                     mutable=["batch_stats"])
+            return criterion(logits.astype(jnp.float32), jnp.asarray(labels))
+        return jax.tree.map(_f64, jax.grad(loss)(p))
+
+    theirs, single = jax_grads(params, jnp.float16), jax_grads(params, jnp.float32)
+    off = jax_grads(jax.tree.map(lambda a: jnp.asarray(_perturbed(a, 11), a.dtype), params),
+                    jnp.float16)
+
+    model = construct_model(cfg.model, bundle.channels, bundle.classes)
+    load_jax_variables(model, {"params": jax.tree.map(_f64, params),
+                               "batch_stats": batch_stats})
+    trainer = Trainer(model, bundle, cfg, torch.device("cpu"))
+    logits = trainer.forward(model, trainer._normalize(torch.as_tensor(images)))
+    grads = torch.autograd.grad(trainer.criterion(logits, torch.as_tensor(labels).long()),
+                                trainer.params)
+    probe = copy.deepcopy(model).double()
+    for p, g in zip(probe.parameters(), grads):
+        p.data.copy_(g)
+    ours = export_jax_variables(probe)["params"]
+
+    assert _rel_l2(ours, theirs) <= _rel_l2(off, theirs), (_rel_l2(ours, theirs),
+                                                           _rel_l2(off, theirs))
+    assert _rel_l2(ours, theirs) < _rel_l2(ours, single)
+    assert _zeros(single) < _zeros(theirs)
+    assert abs(_zeros(ours) - _zeros(theirs)) < abs(_zeros(ours) - _zeros(single)), (
+        _zeros(ours), _zeros(theirs), _zeros(off), _zeros(single))
+    print(f"exactly-zero entries: port {_zeros(ours)}, JAX float16 {_zeros(theirs)}, "
+          f"JAX float16 from weights 2^-11 off {_zeros(off)}, JAX float32 {_zeros(single)} "
+          f"of {sum(np.size(a) for a in jax.tree.leaves(theirs))}")
 
 
 @pytest.mark.parametrize("case", ["bfloat16-params", "float16-params"])
@@ -262,8 +355,7 @@ def test_half_params_keep_float32_running_stats(case):
     """The repair of the running stats' dtype: float32 beside half params, as
     the JAX ``batch_stats``, within the control of them; and eval-mode logits
     of the validation images on the JAX weights within the control (the JAX
-    model's float32 logits on the same weights, or its logits from inputs
-    2^-11 off)."""
+    model's logits from inputs 2^-11 off)."""
     model, bundle, _ = _port_run(case)
     params, batch_stats, _ = _jax_run(case)
     half = {"bfloat16-params": torch.bfloat16, "float16-params": torch.float16}[case]
@@ -271,8 +363,7 @@ def test_half_params_keep_float32_running_stats(case):
     assert {b.dtype for b in model.buffers()} == {torch.float32}
     assert {np.asarray(a).dtype for a in jax.tree.leaves(batch_stats)} == {np.dtype(np.float32)}
     ours = export_jax_variables(copy.deepcopy(model).double())["batch_stats"]
-    tol = max(_rel_l2(c[1], batch_stats) for c in (_jax_run("float32"),
-                                                   _jax_run(case, perturb=True)))
+    tol = max(_rel_l2(c[1], batch_stats) for c in _controls(case))
     assert _rel_l2(ours, batch_stats) <= tol, (_rel_l2(ours, batch_stats), tol)
 
     cfg = jax_load_config(CONFIG, overrides=BASE + CASES[case])
@@ -288,8 +379,7 @@ def test_half_params_keep_float32_running_stats(case):
                                  jnp.asarray(x_, dtype), train=False).astype(jnp.float32))
 
     theirs = jax_logits(x, jdtype)
-    tol = max(_rel_l2(jax_logits(x, jnp.float32), theirs),
-              _rel_l2(jax_logits(_perturbed(x, 9), jdtype), theirs))
+    tol = _rel_l2(jax_logits(_perturbed(x, 9), jdtype), theirs)
     tmodel = construct_model(cfg.model, bundle.channels, bundle.classes)
     load_jax_variables(tmodel, {"params": jax.tree.map(_f64, params),
                                 "batch_stats": batch_stats})
