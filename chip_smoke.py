@@ -20,6 +20,11 @@ Phases, in order; any failure exits non-zero before the result lines:
    ``x`` one element off 16-byte alignment, which takes its one-element
    width (checked and timed as ``narrow_ms``). Beside each kernel's time,
    ``host_ms``: the host's time to enqueue one call of its wrapper.
+   ``bwd_apply`` and BNTrain run as the model's BatchNorm calls them, with
+   ``dx``'s two parts rounded apart (``split``); ``bwd_apply`` with its one
+   rounding is checked too. In bfloat16 (and float16) the split instance
+   may differ from its plain version in at most ``SPLIT_OFF_TOL`` of its
+   entries, which the one rounding exceeds.
 3. One float32 full-batch step of the main path (ResNet-18, 8192 images in
    chunks of 512) with the kernels, and the same step under
    ``ops.bn.plain_versions()``: loss, gradient norm, parameters and running
@@ -53,7 +58,7 @@ Phases, in order; any failure exits non-zero before the result lines:
    kernels against plain versions: in float32 the first update within phase
    3's tolerance and the later ones beside a control run from weights off
    by a few ulps; in float64 all 16 within 1e-10. (c) ``hyp=base_sgd`` as its yaml has it
-   through ``training.train``: 2 steps of 390 updates, exact launch counts,
+   through ``training.train``: 1 step of 390 updates, exact launch counts,
    the profile of an epoch cut to 50 updates. (d) The paper's "FB in practice" step,
    ``hyp=gradreg data.batch_size=32 hyp.shuffle=True`` in bf16, cut to 195
    of its 1562 chunks, exact launch counts, the profile of a step cut to 32
@@ -68,8 +73,8 @@ Phases, in order; any failure exits non-zero before the result lines:
    ``fb_10_1``: one ``hyp=fb1`` step over the 500,000 images as phase 4
    runs it, phase 4's launches a chunk, the store's upload time, peak
    memory. (c) ``SGD_10_CIFAR``: ``hyp=base_sgd
-   hyp.train_semi_stochastic=True``, 2 steps (rounds 0 and 1) with phase
-   8c's launches, each step's staged rows bitwise the host gather of its
+   hyp.train_semi_stochastic=True``, 2 steps (rounds 0 and 1) with twice
+   phase 8c's launches, each step's staged rows bitwise the host gather of its
    round in its order, the gather's time. (d) Phase 3 on a float32
    semi-stochastic ``hyp=fb1`` step over a 2-round store of 8,192 images a
    round. (e) The host path (the store above
@@ -178,8 +183,7 @@ Phases, in order; any failure exits non-zero before the result lines:
    against the float16 yardsticks (``torch.batch_norm_stats``, ...,
    ``F.batch_norm``). (b) A float32-parameter ``impl.compute_dtype=float16``
    ``hyp=fb1`` step as phase 3, each quantity beyond its tolerance held to
-   10x a plain run from weights off by 2^-20. Beside it, float16 products
-   with cuBLAS's reduced-precision reduction on and off against float64.
+   10x a plain run from weights off by 2^-20.
    (c) ``impl.compute_dtype=float16`` at phase 4's width, 2 steps: every BN
    launch a float16 one at 16 bytes, phase 4's launches a step and an
    evaluation, the step times beside phase 4's, and the share of
@@ -189,7 +193,16 @@ Phases, in order; any failure exits non-zero before the result lines:
    of the four float16 kernels equal the launches of the traced step and
    its evaluation, and the stats are bitwise (c)'s. (e) ``python -m
    fullbatchtraining_tpu_torch --multirun seed=0,1`` (a dryrun at width 16)
-   makes ``<sweep>/0`` and ``<sweep>/1``, each with its log.
+   makes ``<sweep>/0`` and ``<sweep>/1``, each with its log. (f) One
+   chunk's float16 gradient (the first ``F16_CHUNK_IMAGES`` training images)
+   at (c)'s weights on the card, through the float16 kernel instances and
+   cuDNN, against the port's CPU path (the plain versions), which the CPU
+   tests hold to the JAX package; the control is the CPU path from weights
+   2^-11 off. The entries exactly zero on one side only (card or CPU, not
+   both) and the relative L2 must lie within 10x the control's; the net
+   count of exact zeros, which cancels across leaves, is printed beside
+   the control's. Its BN launches: one float16 launch of each kernel a
+   layer, nothing in another type.
 
 The last lines are the card line, a JSON object of per-kernel numbers (their
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` sum the 20 BN layers of
@@ -239,6 +252,11 @@ BYTES_PER_ELEMENT = {"stats": 1, "apply": 2, "bwd_reduce": 2, "bwd_apply": 3, "b
 SUM_TOL = 1e-5        # reductions: error / sum of |terms| (float32 sums, any order)
 ULP = {"float32": 2.0 ** -23, "bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
 # error / max |plain output|: bf16's 2e-2 is 2.56 ulp, float16 takes as many
+# the share of a half-type split bwd_apply's entries that may differ from its
+# plain version's: the kernel's FMA rounds c1 + c2*x once where the plain
+# version rounds twice, which moves a bfloat16 or float16 rounding in at
+# most about one entry of 2^13; the one rounding moves it in far more
+SPLIT_OFF_TOL = 1e-3
 BN_TRAIN_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 2.5e-3}
 
 
@@ -331,15 +349,19 @@ def phase_kernels(torch, bn, chunk=CHUNK, stages=STAGES, dtypes=("float32", "bfl
             coef = torch.randn((3, c), generator=g, device=dev)
             with bn.plain_versions():
                 plain = {"stats": bn.stats(x), "bwd_reduce": bn.bwd_reduce(dy, x),
-                         "apply": bn.apply(x, ab), "bwd_apply": bn.bwd_apply(dy, x, coef)}
+                         "apply": bn.apply(x, ab),
+                         "bwd_apply": bn.bwd_apply(dy, x, coef, split=True)}
+                single = bn.bwd_apply(dy, x, coef)
                 scale = {"stats": bn.stats(x.abs()),
                          "bwd_reduce": bn.bwd_reduce(dy.abs(), x.abs()),
                          "apply": (x.float() * ab[0]).abs() + ab[1].abs(),
                          "bwd_apply": ((dy.float() * coef[0]).abs() + coef[1].abs()
                                        + (x.float() * coef[2]).abs())}
+            # bwd_apply as the model's BatchNorm calls it (split); its one
+            # rounding, pallas_bn's, is held to its plain version below
             calls = {"stats": lambda: bn.stats(x), "bwd_reduce": lambda: bn.bwd_reduce(dy, x),
                      "apply": lambda: bn.apply(x, ab),
-                     "bwd_apply": lambda: bn.bwd_apply(dy, x, coef)}
+                     "bwd_apply": lambda: bn.bwd_apply(dy, x, coef, split=True)}
             # x one element off 16-byte alignment: every kernel takes its
             # one-element width on it
             x_off = torch.empty(m * c + 1, dtype=dtype, device=dev)[1:].view(m, c)
@@ -347,7 +369,7 @@ def phase_kernels(torch, bn, chunk=CHUNK, stages=STAGES, dtypes=("float32", "bfl
             narrow = {"stats": lambda: bn.stats(x_off),
                       "bwd_reduce": lambda: bn.bwd_reduce(dy, x_off),
                       "apply": lambda: bn.apply(x_off, ab),
-                      "bwd_apply": lambda: bn.bwd_apply(dy, x_off, coef)}
+                      "bwd_apply": lambda: bn.bwd_apply(dy, x_off, coef, split=True)}
             library = library_calls(torch, F, x, dy, ab, hw, c, chunk)
             for name, call in calls.items():
                 before = dict(bn.vector_launches)
@@ -376,8 +398,22 @@ def phase_kernels(torch, bn, chunk=CHUNK, stages=STAGES, dtypes=("float32", "bfl
                 check(width == expect, f"{name} {dtype_name} C={c} took {width}-byte accesses")
                 row.update(narrow_run(torch, bn, name, narrow[name], plain[name], scale[name],
                                       dtype_name, x.element_size()))
+            _, rel, tol = against_plain("bwd_apply", bn.bwd_apply(dy, x, coef), single,
+                                        scale["bwd_apply"], dtype_name)
+            log(f"  bwd_apply  {dtype_name:8s} one rounding (split=False): rel={rel:.2e}")
+            check(rel <= tol, f"bwd_apply {dtype_name} M={m} C={c} with one rounding "
+                              "disagrees with its plain version")
+            if dtype_name in ("bfloat16", "float16"):
+                out = bn.bwd_apply(dy, x, coef, split=True)
+                off = (out != plain["bwd_apply"]).double().mean().item()
+                off_single = (out != single).double().mean().item()
+                log(f"  bwd_apply  {dtype_name:8s} split: {off:.2e} of its entries off its plain "
+                    f"version's, {off_single:.2e} off the one rounding's")
+                check(off <= SPLIT_OFF_TOL, f"bwd_apply {dtype_name} M={m} C={c} split: "
+                      f"{off:.2e} of its entries off its plain version's")
+                del out
             rows.append(phase_bn_train(torch, bn, F, x, dy, dtype_name, hw, c, chunk))
-            del x, dy, x_off, plain, scale, calls, narrow, library
+            del x, dy, x_off, plain, single, scale, calls, narrow, library
             torch.cuda.empty_cache()
     return rows
 
@@ -451,7 +487,7 @@ def phase_bn_train(torch, bn, F, x, dy, dtype_name, hw, c, chunk=CHUNK):
     xg = x.detach().requires_grad_()
 
     def step():
-        y, mean, var = bn.bn_train(xg, scale, bias)
+        y, mean, var = bn.bn_train(xg, scale, bias, split_dx=True)   # as the model's BN
         return (y, mean, var, *torch.autograd.grad(y, (xg, scale, bias), dy))
 
     outs = step()
@@ -947,7 +983,7 @@ def regularizer_sizes(torch):
 
 SGD_BATCHES = (128, 32)   # hyp=base_sgd's blocks; the paper's "FB in practice" chunks
 SGD_EPOCH = ["hyp.warmup=0", "hyp.steps=1", "data.size=2048"]     # 16 updates, float32
-SGD_FULL = ["hyp.steps=2"]                                         # the yaml as it stands
+SGD_FULL = ["hyp.steps=1"]         # the yaml as it stands, one step (a second took as long)
 # Cuts of data size, not width, that keep the whole run within its time
 # limit: the "FB in practice" step is host-bound at a fixed cost a chunk
 # (about 0.1 s), so 195 of its 1562 chunks; a whole traced epoch costs
@@ -1074,7 +1110,7 @@ def phase_sgd_epoch(torch, bn):
 
 def phase_sgd_full_width(torch, bn):
     """8c: ``hyp=base_sgd`` as its yaml has it through ``training.train``
-    (float32, shuffled, 50,000 images in blocks of 128), 2 steps of 390
+    (float32, shuffled, 50,000 images in blocks of 128), 1 step of 390
     updates: ``stats``, ``bwd_reduce`` and ``bwd_apply`` 20 x 390 a step,
     ``apply`` that plus 20 x 79 an evaluation, all at 16 bytes a thread;
     then the profile of an epoch cut to ``SGD_PROFILED``."""
@@ -1099,9 +1135,9 @@ def phase_sgd_full_width(torch, bn):
             f"train loss {stats['train_loss'][i]:.4f}")
     log(f"  valid loss {stats['valid_loss']}; peak memory {result['peak_memory_gib']:.2f} GiB; "
         f"launches {counts}; at 16 bytes a thread {wide}")
-    check(steps == 2 and evals == 2 and blocks == SGD_UPDATES,
-          f"{steps} steps of {blocks} updates and {evals} evaluations, expected 2, "
-          f"{SGD_UPDATES} and 2")
+    check(steps == 1 and evals == 1 and blocks == SGD_UPDATES,
+          f"{steps} steps of {blocks} updates and {evals} evaluations, expected 1, "
+          f"{SGD_UPDATES} and 1")
     for name in KERNELS:
         check(counts[name] == per_step * steps,
               f"{name}: {counts[name]} launches, expected {per_step} per step")
@@ -1237,6 +1273,7 @@ BAKE_ROUNDS = 10
 BAKED = ["data/db=baked", "data.augmentations_train=", f"data.db.rounds={BAKE_ROUNDS}",
          f"data.db.path={BAKED_DIR}", "data.db.temporary_database=True"]
 SEMI = ["hyp.train_semi_stochastic=True"]
+SGD_10_CIFAR = ["hyp.steps=2"] + BAKED + SEMI   # 9c: rounds 0 and 1
 BAKED_FP32 = BAKED + ["data.db.rounds=2"] + SEMI   # with FP32_STEP: 2 rounds of 8192
 BAKE_SAMPLES = 512    # images a round checked against their crop/flip windows
 BAKE_PAD, BAKE_SIZE = 4, 32   # config/data/db/baked.yaml: RandomCrop [32, 4], flip 0.5
@@ -1374,7 +1411,7 @@ def phase_baked_fb1(torch, bn, fb1):
 
 def phase_baked_sgd(torch, bn, sgd):
     """9c, ``SGD_10_CIFAR``: ``hyp=base_sgd hyp.train_semi_stochastic=True``
-    as its yaml has it, 2 steps: phase 8c's launches exactly, and each
+    as its yaml has it, 2 steps: twice phase 8c's launches exactly, and each
     step's staged rows bitwise the host gather of round ``step % rounds``
     from the memmap in the step's order. Returns the result and the staged
     rows of step 1 for 9e."""
@@ -1391,7 +1428,7 @@ def phase_baked_sgd(torch, bn, sgd):
     bn.reset_counts()
     training.Trainer.stage = recording
     try:
-        cfg, bundle, _, _, stats = run_main_path(torch, SGD_FULL + BAKED + SEMI, "base_sgd")
+        cfg, bundle, _, _, stats = run_main_path(torch, SGD_10_CIFAR, "base_sgd")
     finally:
         training.Trainer.stage = stage
     counts, wide = dict(bn.launches), dict(bn.vector_launches)
@@ -1424,7 +1461,8 @@ def phase_baked_sgd(torch, bn, sgd):
         f"{gather['bytes'] / 1e6:.1f} MB read and written; store {trainer.images.numel() / 1e9:.3f} "
         f"GB on the card; peak memory {result['peak_memory_gib']:.2f} GiB; launches {counts}")
     check(all(equal), f"staged rows differ from the host gather: {equal}")
-    check(counts == sgd["launches"], f"SGD_10_CIFAR launches {counts}, phase 8c's {sgd['launches']}")
+    twice = {k: 2 * v for k, v in sgd["launches"].items()}
+    check(counts == twice, f"SGD_10_CIFAR launches {counts}, twice phase 8c's {twice}")
     check(wide == counts, f"launches {counts}, of them at 16 bytes a thread {wide}")
     check(all(map(math.isfinite, stats["train_loss"] + stats["valid_loss"])), "non-finite loss")
     resident = staged[1][1]
@@ -1440,7 +1478,7 @@ def phase_baked_host_path(torch, resident):
     from fullbatchtraining_tpu_torch.models import construct_model
     from fullbatchtraining_tpu_torch.training import training
 
-    cfg = main_path_config(SGD_FULL + BAKED + SEMI, "base_sgd")
+    cfg = main_path_config(SGD_10_CIFAR, "base_sgd")
     bundle = construct_databundle(cfg.data, cfg.impl, cfg.hyp, seed=cfg.seed, device=DEVICE)
     cfg.impl.device_shuffle_max_bytes = bundle.train.images.nbytes - 1
     model = construct_model(cfg.model, bundle.channels, bundle.classes, seed=cfg.seed)
@@ -3117,7 +3155,8 @@ def phase_f16_full_width(torch, bn, fb1):
               "train_loss": stats["train_loss"], "valid_loss": stats["valid_loss"],
               "launches_f16": f16, "vector_launches": wide, "evals": evals,
               "peak_memory_gib": peak_gib,
-              "zero_gradient_share": shares, "stats": stats}
+              "zero_gradient_share": shares, "stats": stats,
+              "model": state.model, "bundle": bundle}    # 16f's; main pops them
     log(f"  steps {[f'{t:.3f}' for t in stats['train_time']]} s (phase 4, bf16: "
         f"{[f'{t:.3f}' for t in fb1['step_s']]} s); peak memory {peak_gib:.2f} GiB; train "
         f"loss {stats['train_loss']}, valid loss {stats['valid_loss']}; f16 launches {f16} (expected {expected}); other types "
@@ -3128,6 +3167,99 @@ def phase_f16_full_width(torch, bn, fb1):
     check(not others, f"BN launches in other types than float16: {others}")
     check(wide == f16, f"launches at 16 bytes {wide} of {f16}")
     check(all(map(math.isfinite, stats["train_loss"] + stats["valid_loss"])), "non-finite loss")
+    return result
+
+
+F16_CHUNK_IMAGES = 64   # 16f: the chunk held on the card against the CPU
+
+
+def f16_chunk_gradient(torch, model, bundle, device, perturb=0.0):
+    """The gradient of one chunk, the first ``F16_CHUNK_IMAGES`` training
+    images of ``bundle``, under ``F16_FULL``'s config at ``model``'s weights
+    (each times ``1 +- perturb``, the signs drawn from seed 2), through a
+    ``Trainer`` on ``device``: on the card the BN kernels' float16 instances
+    and cuDNN, on the CPU the plain versions. A list of float64 CPU tensors
+    in ``parameters()`` order."""
+    import numpy as np
+
+    from fullbatchtraining_tpu_torch.training import training
+
+    model = copy.deepcopy(model)
+    if perturb:
+        g = torch.Generator().manual_seed(2)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_(1 + perturb * torch.randn(p.shape, generator=g).sign().to(p.device))
+    trainer = training.Trainer(model, bundle, main_path_config(F16_FULL), torch.device(device))
+    train = bundle.train
+    images = torch.from_numpy(np.asarray(train.images[:F16_CHUNK_IMAGES])).to(device)
+    labels = torch.from_numpy(np.asarray(train.labels[:F16_CHUNK_IMAGES])).long().to(device)
+    loss = trainer.criterion(trainer.forward(model, trainer._normalize(images)), labels)
+    return [g.double().cpu() for g in torch.autograd.grad(loss, trainer.params)]
+
+
+def phase_f16_card_against_cpu(torch, bn, model, bundle):
+    """16f: one chunk's float16 gradient at 16c's weights on the card
+    against the port's CPU path, which the CPU tests hold to the JAX
+    package's; the control is the CPU path from weights 2^-11 off (one
+    float16 rounding step). Within 10x the control: the entries exactly
+    zero on one side only (card or CPU, not both) and the relative L2. The
+    net count of exact zeros is printed, not held: its gains and losses
+    cancel across leaves, so that another draw of the offsets' signs can
+    move it by a few entries or by thousands. The card's BN launches
+    must be the float16 instances', one of each kernel a BN layer."""
+    import numpy as np
+
+    bn.reset_counts()
+    t0 = time.time()
+    card = f16_chunk_gradient(torch, model, bundle, DEVICE)
+    card_s = time.time() - t0
+    launches = {k: dict(v) for k, v in bn.dtype_launches.items()}
+    t0 = time.time()
+    cpu = f16_chunk_gradient(torch, model, bundle, "cpu")
+    cpu_s = time.time() - t0
+    control = f16_chunk_gradient(torch, model, bundle, "cpu", perturb=2.0 ** -11)
+    check({k: dict(v) for k, v in bn.dtype_launches.items()} == launches,
+          "the CPU runs launched kernels")
+    size = sum(g.numel() for g in cpu)
+
+    def zeros(grads):
+        return sum(int((g == 0).sum()) for g in grads)
+
+    def one_side(grads):   # entries exactly zero here or on the CPU, not both
+        return sum(int(((a == 0) != (b == 0)).sum()) for a, b in zip(grads, cpu))
+
+    def rel_l2(grads):
+        return math.sqrt(sum(float((a - b).square().sum()) for a, b in zip(grads, cpu))
+                         / sum(float(b.square().sum()) for b in cpu))
+
+    z_card, z_cpu, z_control = zeros(card), zeros(cpu), zeros(control)
+    side, side_control = one_side(card), one_side(control)
+    rel, rel_control = rel_l2(card), rel_l2(control)
+    f16 = launches["f16"]
+    others = {k: v for k, v in launches.items() if k != "f16" and any(v.values())}
+    result = {"images": F16_CHUNK_IMAGES, "entries": size,
+              "zero_share": {"card": z_card / size, "cpu": z_cpu / size,
+                             "cpu_control": z_control / size},
+              "zeros": {"card": z_card, "cpu": z_cpu, "cpu_control": z_control},
+              "one_side": side, "one_side_control": side_control,
+              "rel_l2": rel, "rel_l2_control": rel_control, "launches_f16": f16,
+              "card_s": card_s, "cpu_s": cpu_s,
+              "finite": bool(all(np.isfinite(g.numpy()).all() for g in card))}
+    log(f"  {F16_CHUNK_IMAGES} images, {size} entries: exactly zero on the card {z_card} "
+        f"({z_card / size:.4%}), on the CPU {z_cpu} ({z_cpu / size:.4%}), CPU from weights "
+        f"2^-11 off {z_control} ({z_control / size:.4%}); |card - CPU| {abs(z_card - z_cpu)}, "
+        f"|control - CPU| {abs(z_control - z_cpu)}; zero on one side only: card {side}, "
+        f"control {side_control}; relative L2 to the CPU: card {rel:.3e}, control "
+        f"{rel_control:.3e}; f16 launches {f16}; card {card_s:.1f} s, CPU {cpu_s:.1f} s")
+    check(result["finite"], "non-finite gradient on the card")
+    check(side <= 10 * side_control,
+          f"{side} entries zero on one side only, beyond 10x the control's {side_control}")
+    check(rel <= 10 * rel_control, f"relative L2 {rel:.3e} beyond 10x the control's "
+          f"{rel_control:.3e}")
+    check(f16 == dict.fromkeys(bn.launches, BN_LAYERS),
+          f"float16 launches {f16}, expected {BN_LAYERS} of each kernel")
+    check(not others, f"BN launches in other types than float16: {others}")
     return result
 
 
@@ -3270,7 +3402,7 @@ def main() -> int:
     phase("[8b] float32 hyp=base_sgd epoch (16 updates, shuffled), with and without SAM: "
         "kernels against plain versions")
     sgd_epoch = phase_sgd_epoch(torch, bn)
-    phase("[8c] hyp=base_sgd at full width: 2 steps of 390 updates, float32")
+    phase("[8c] hyp=base_sgd at full width: 1 step of 390 updates, float32")
     sgd = phase_sgd_full_width(torch, bn)
     phase("[8d] hyp=gradreg data.batch_size=32 hyp.shuffle=True: 1 full-width bf16 step, "
           "195 chunks")
@@ -3363,10 +3495,14 @@ def main() -> int:
     kernels_against_plain_step(torch, bn, extra=F16, control=True)
     phase("[16c] main path in float16 at full width: impl.compute_dtype=float16, 2 steps")
     f16_full = phase_f16_full_width(torch, bn, full)
+    f16_model, f16_bundle = f16_full.pop("model"), f16_full.pop("bundle")
     phase("[16d] 16c traced (impl.trace=True impl.trace_steps=1): bitwise 16c, trace = launches")
     f16_trace = phase_f16_trace(torch, bn, f16_full)
     phase("[16e] a two-job --multirun dryrun through the CLI")
     multirun = phase_multirun(torch)
+    phase("[16f] one float16 chunk's gradient at 16c's weights: the card against the CPU")
+    f16_cpu = phase_f16_card_against_cpu(torch, bn, f16_model, f16_bundle)
+    del f16_model, f16_bundle
     family_runs = [fam_multinode, fam_memeff["plain"], fam_memeff["memory_efficient"],
                    *fam_fp32.values(), *fam_bf16.values()]
 
@@ -3433,7 +3569,7 @@ def main() -> int:
              "surface": surface, "surface_plain": surface_plain, "snapshot": snapshot,
              "tools": tools, "pth": pth, "f16_kernel_rows": f16_rows,
              "f16_full_width": {k: v for k, v in f16_full.items() if k != "stats"},
-             "f16_trace": f16_trace, "multirun": multirun,
+             "f16_trace": f16_trace, "multirun": multirun, "f16_card_against_cpu": f16_cpu,
              "kernels": kernels, "phase_starts_s": starts}, indent=1, default=str))
     log(f"all phases passed in {time.time() - started:.0f} s; phases started at (s): "
         + ", ".join(f"{k} {v:.0f}" for k, v in starts.items()))

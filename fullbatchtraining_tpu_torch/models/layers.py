@@ -90,12 +90,56 @@ def torch_default_bias_(fan_in: int):
     return init
 
 
+def half_product(fn: Callable, x: torch.Tensor, weight: torch.Tensor, *args) -> torch.Tensor:
+    """``fn(x, weight, None, *args)``, ``F.conv2d`` or ``F.linear``, without
+    bias. On the CPU, a float16 product (float16 inputs, or under float16
+    autocast) runs in float32 and rounds once, as XLA's CPU backend computes
+    it; torch's own CPU float16 kernels, on a host with AVX512-FP16, round
+    as they accumulate and underflow otherwise."""
+    if x.device.type == "cpu":
+        autocast = torch.is_autocast_enabled("cpu")
+        dtype = torch.get_autocast_dtype("cpu") if autocast else x.dtype
+        if dtype == torch.float16:
+            with torch.autocast("cpu", enabled=False):
+                return fn(x.to(dtype).float(), weight.to(dtype).float(), None,
+                          *args).to(dtype)
+    return fn(x, weight, None, *args)
+
+
+def add_bias(y: torch.Tensor, bias: torch.Tensor | None, channels_axis: int = -1):
+    """``y + bias`` along ``channels_axis``, in ``y``'s dtype: flax ``Dense``
+    and ``Conv`` round the product to a half dtype, then the sum
+    (``F.linear``/``F.conv2d`` with a bias round once)."""
+    if bias is None:
+        return y
+    shape = [1] * y.dim()
+    shape[channels_axis] = -1
+    return y + bias.to(y.dtype).view(shape)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` through :func:`half_product` and :func:`add_bias`."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return add_bias(half_product(F.linear, x, self.weight), self.bias)
+
+
+class Conv2d(nn.Conv2d):
+    """Zero-padded ``nn.Conv2d`` through :func:`half_product` and
+    :func:`add_bias`."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = half_product(F.conv2d, x, self.weight, self.stride, self.padding, self.dilation,
+                         self.groups)
+        return add_bias(y, self.bias, 1)
+
+
 def linear(in_features: int, out_features: int, generator: torch.Generator | None,
            weight_init: Callable = torch_default_conv_,
            bias_init: Callable | None = None) -> nn.Linear:
-    """``nn.Linear`` drawn from ``generator``: ``weight_init`` for the weight,
-    ``bias_init`` (default: torch's uniform) for the bias."""
-    layer = nn.Linear(in_features, out_features)
+    """:class:`Linear` drawn from ``generator``: ``weight_init`` for the
+    weight, ``bias_init`` (default: torch's uniform) for the bias."""
+    layer = Linear(in_features, out_features)
     weight_init(layer.weight, generator)
     (bias_init or torch_default_bias_(in_features))(layer.bias, generator)
     return layer
@@ -105,10 +149,10 @@ def _conv(in_channels: int, features: int, kernel_size: int = 3, stride: int = 1
           padding: int = 0, groups: int = 1, bias: bool = False, dilation: int = 1,
           generator: torch.Generator | None = None, kernel_init: Callable = kaiming_normal_out_,
           bias_init: Callable = zeros_) -> nn.Conv2d:
-    """Zero-padded conv; kaiming-normal fan-out weights and zero bias unless
-    ``kernel_init``/``bias_init`` say otherwise."""
-    conv = nn.Conv2d(in_channels, features, kernel_size, stride=stride, padding=padding,
-                     dilation=dilation, groups=groups, bias=bias)
+    """Zero-padded :class:`Conv2d`; kaiming-normal fan-out weights and zero
+    bias unless ``kernel_init``/``bias_init`` say otherwise."""
+    conv = Conv2d(in_channels, features, kernel_size, stride=stride, padding=padding,
+                  dilation=dilation, groups=groups, bias=bias)
     kernel_init(conv.weight, generator)
     if conv.bias is not None:
         bias_init(conv.bias, generator)
@@ -147,8 +191,9 @@ class WSConv2d(nn.Module):
         return (w - mean) * scale * self.gain.view(-1, 1, 1, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.standardized_weight(), self.bias, self.stride, self.padding,
-                        self.dilation, self.groups)
+        y = half_product(F.conv2d, x, self.standardized_weight(), self.stride, self.padding,
+                         self.dilation, self.groups)
+        return add_bias(y, self.bias, 1)
 
 
 # --------------------------------------------------------------------------
@@ -214,7 +259,10 @@ class BatchNorm2d(nn.Module):
       normalisation uses the biased one;
     * statistics in ``promote(x.dtype, float32)``;
     * bfloat16 and float16 inputs see ``weight``/``bias`` rounded to their
-      dtype first.
+      dtype first;
+    * the input's gradient is the sum of two parts each rounded to the
+      input's dtype (``bn_train(..., split_dx=True)``): ``_TorchBatchNorm``
+      casts x to float32 twice, and autodiff casts each cotangent back.
 
     Train mode runs ``ops.bn.bn_train``; eval mode runs the ``apply`` kernel
     with ``a``, ``b`` folded from the running stats (:func:`eval_affine`),
@@ -241,7 +289,7 @@ class BatchNorm2d(nn.Module):
             return eval_affine(x, scale, bias, self.running_mean, self.running_var,
                                self.epsilon)
         rows = x.permute(0, 2, 3, 1)  # NHWC: contiguous when x is channels_last
-        y, mean, var = bn_ops.bn_train(rows, scale, bias, self.epsilon)
+        y, mean, var = bn_ops.bn_train(rows, scale, bias, self.epsilon, split_dx=True)
         if _stat_updates:
             n = rows.numel() / self.channels
             ema_(self.running_mean, mean, self.momentum)

@@ -13,6 +13,7 @@ from torch import nn
 from torch.func import functional_call
 
 from .densenets import DenseNet, densenet_depths_to_config
+from .layers import Linear
 from .nfnets import NFNet
 from .pyramidnets import PyramidNet
 from .resnets import ResNet, resnet_depths_to_config
@@ -25,7 +26,7 @@ class LinearDebugModel(nn.Module):
 
     def __init__(self, classes: int, generator: torch.Generator | None = None):
         super().__init__()
-        self.fc = nn.Linear(100, classes)
+        self.fc = Linear(100, classes)
         with torch.no_grad():
             # lecun normal: truncated normal of variance 1/fan_in
             nn.init.trunc_normal_(self.fc.weight, 0.0, 1.0, -2.0, 2.0, generator=generator)

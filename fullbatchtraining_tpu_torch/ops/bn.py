@@ -10,6 +10,17 @@ channels-last activation:
 * ``bwd_reduce``  per-channel ``(sum dy, sum dy*x)``         (``_bwd_reduce_kernel``)
 * ``bwd_apply``   ``dx = a*dy + c1 + c2*x``                  (``_bwd_apply_kernel``)
 
+``bwd_apply`` rounds ``dx`` to the input type ``T`` once, as the Pallas
+kernel does, or, with ``split=True``, ``T(a*dy) + T(c1 + c2*x)``: the ``dy``
+path and the statistics' path rounded apart and added in ``T``. The second
+is the ``dx`` that autodiff gives the JAX model's BatchNorm
+(``_TorchBatchNorm`` casts ``x`` to float32 twice, for the statistics and to
+normalise, so ``jax.grad`` returns the sum of two cotangents, each cast back
+to ``T``); the model's :class:`BatchNorm2d` asks for it through
+``bn_train(..., split_dx=True)``. For float32 and float64 the casts are
+no-ops. In float16 below its normal range, where a rounding step is an
+absolute 6e-8, the one rounding leaves more entries at exactly zero.
+
 Each wrapper runs its kernel for a CUDA tensor and its plain PyTorch version
 for a CPU tensor; nothing falls back from one to the other. Inside
 :func:`plain_versions` the plain versions run on CUDA too (tests and the
@@ -113,9 +124,14 @@ def bwd_reduce_plain(dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.stack([dyf.sum(0), (dyf * xf).sum(0)])
 
 
-def bwd_apply_plain(dy: torch.Tensor, x: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
+def bwd_apply_plain(dy: torch.Tensor, x: torch.Tensor, coef: torch.Tensor,
+                    split: bool = False) -> torch.Tensor:
     dyf, xf = dy.to(coef.dtype), x.to(coef.dtype)
-    return (dyf * coef[0] + coef[1] + xf * coef[2]).to(x.dtype)
+    if not split:
+        return (dyf * coef[0] + coef[1] + xf * coef[2]).to(x.dtype)
+    direct = (dyf * coef[0]).to(x.dtype).to(coef.dtype)
+    stats_path = (coef[1] + xf * coef[2]).to(x.dtype).to(coef.dtype)
+    return (direct + stats_path).to(x.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -127,7 +143,8 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("bn_kernels")
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     for suffix in _SUFFIX.values():
-        for name, nptr in (("stats", 3), ("apply", 3), ("bwd_reduce", 4), ("bwd_apply", 4)):
+        for name, nptr in (("stats", 3), ("apply", 3), ("bwd_reduce", 4), ("bwd_apply", 4),
+                           ("bwd_apply_split", 4)):
             fn = getattr(lib, f"fbt_bn_{name}_{suffix}")
             fn.argtypes = [ptr] * nptr + [i64, i32, i32, i32, ptr]
             fn.restype = ctypes.c_int
@@ -221,7 +238,9 @@ def _reduce(name: str, plain, *inputs: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _elementwise(name: str, plain, coef: torch.Tensor, *inputs: torch.Tensor) -> torch.Tensor:
+def _elementwise(name: str, plain, coef: torch.Tensor, *inputs: torch.Tensor,
+                 entry: str | None = None) -> torch.Tensor:
+    """Kernel ``name`` through its entry point ``entry`` (default ``name``)."""
     if not _use_kernel(*inputs):
         return plain(*inputs, coef)
     x = inputs[-1]
@@ -232,7 +251,7 @@ def _elementwise(name: str, plain, coef: torch.Tensor, *inputs: torch.Tensor) ->
         return out
     ptrs = [t.data_ptr() for t in (*inputs, out)]
     g, vec = _plan(x, ptrs)
-    fn = getattr(_library(), f"fbt_bn_{name}_{_SUFFIX[x.dtype]}")
+    fn = getattr(_library(), f"fbt_bn_{entry or name}_{_SUFFIX[x.dtype]}")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _check(fn(*ptrs[:-1], coef.data_ptr(), ptrs[-1], m, c, g, vec, stream), name)
     _launched(name, x.dtype, vec)
@@ -254,9 +273,13 @@ def bwd_reduce(dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return _reduce("bwd_reduce", bwd_reduce_plain, dy, x)
 
 
-def bwd_apply(dy: torch.Tensor, x: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
-    """``dx = coef[0]*dy + coef[1] + coef[2]*x`` per channel, in ``x.dtype``."""
-    return _elementwise("bwd_apply", bwd_apply_plain, coef, dy, x)
+def bwd_apply(dy: torch.Tensor, x: torch.Tensor, coef: torch.Tensor,
+              split: bool = False) -> torch.Tensor:
+    """``dx = coef[0]*dy + coef[1] + coef[2]*x`` per channel, in ``x.dtype``;
+    with ``split``, ``coef[0]*dy`` and ``coef[1] + coef[2]*x`` each rounded
+    to ``x.dtype`` and added in it."""
+    return _elementwise("bwd_apply", functools.partial(bwd_apply_plain, split=split), coef,
+                        dy, x, entry="bwd_apply_split" if split else None)
 
 
 # --------------------------------------------------------------------------
@@ -278,11 +301,11 @@ class BNTrain(torch.autograd.Function):
     axis; differentiable in x, scale and bias with mean and var treated as
     functions of x, and correct for cotangents of mean and var too. Its
     backward is :class:`BNTrainBackward`, so it can be differentiated twice
-    (``create_graph=True``)."""
+    (``create_graph=True``); ``split_dx`` picks ``bwd_apply``'s rounding."""
 
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda")
-    def forward(ctx, x, scale, bias, eps: float):
+    def forward(ctx, x, scale, bias, eps: float, split_dx: bool = False):
         x2 = as_rows(x)
         n = x2.shape[0]
         acc = stat_dtype(x.dtype)
@@ -296,7 +319,7 @@ class BNTrain(torch.autograd.Function):
         # x itself, not its rows: under create_graph the saved input comes
         # back with its history, so the double backward reaches x's producer
         ctx.save_for_backward(x, scale, mean, invstd)
-        ctx.eps = eps
+        ctx.eps, ctx.split_dx = eps, split_dx
         return y.view(x.shape), mean, var
 
     @staticmethod
@@ -306,8 +329,8 @@ class BNTrain(torch.autograd.Function):
         x2 = as_rows(x)
         dy2 = as_rows(dy.to(x.dtype))
         dx, dscale, dbias = BNTrainBackward.apply(dy2, x2, scale, dmean, dvar,
-                                                  mean.detach(), invstd, ctx.eps)
-        return dx.view(x.shape), dscale, dbias, None
+                                                  mean.detach(), invstd, ctx.eps, ctx.split_dx)
+        return dx.view(x.shape), dscale, dbias, None, None
 
 
 class BNTrainBackward(torch.autograd.Function):
@@ -328,7 +351,8 @@ class BNTrainBackward(torch.autograd.Function):
 
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda")
-    def forward(ctx, dy2, x2, scale, dmean, dvar, mean, invstd, eps: float):
+    def forward(ctx, dy2, x2, scale, dmean, dvar, mean, invstd, eps: float,
+                split_dx: bool = False):
         n = x2.shape[0]
         sums = bwd_reduce(dy2, x2)
         s1 = sums[0]                    # sum(dy)
@@ -337,7 +361,7 @@ class BNTrainBackward(torch.autograd.Function):
         # dx = a*dy + c1 + c2*x: the dy terms plus the cotangents of mean, var
         c2 = (-a * invstd * invstd * s2 + 2.0 * dvar) / n
         c1 = (-a * s1 + dmean) / n - c2 * mean
-        dx = bwd_apply(dy2, x2, torch.stack([a, c1, c2]))
+        dx = bwd_apply(dy2, x2, torch.stack([a, c1, c2]), split_dx)
         ctx.save_for_backward(dy2, x2, scale, dmean, dvar)
         ctx.eps = eps
         return dx, (s2 * invstd).to(scale.dtype), s1.to(scale.dtype)
@@ -359,12 +383,15 @@ class BNTrainBackward(torch.autograd.Function):
             cotangents = [g.to(acc) for g in (ddx, ddscale, ddbias)]
             second = torch.autograd.grad(first, leaves, cotangents, allow_unused=True)
         return (*(None if g is None else g.to(t.dtype) for g, t in zip(second, inputs)),
-                None, None, None)
+                None, None, None, None)
 
 
-def bn_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5):
-    """Train-mode batch norm of ``x [..., C]``: ``(y, mean, biased var)``."""
-    return BNTrain.apply(x, scale, bias, eps)
+def bn_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5,
+             split_dx: bool = False):
+    """Train-mode batch norm of ``x [..., C]``: ``(y, mean, biased var)``.
+    ``split_dx`` rounds the gradient's two parts apart (``bwd_apply``), as
+    autodiff of the JAX model's BatchNorm does."""
+    return BNTrain.apply(x, scale, bias, eps, split_dx)
 
 
 class BNEval(torch.autograd.Function):

@@ -18,7 +18,9 @@
 //
 // Two templates cover the four kernels, each with one or two [M, C] inputs:
 // reduce_rows (stats: x; bwd_reduce: dy, x) and affine_rows (apply: x;
-// bwd_apply: dy, x).
+// bwd_apply: dy, x). bwd_apply has two roundings, each with its entry point:
+// the Pallas kernel's one rounding of dx, and SPLIT, the two of the JAX
+// model's BatchNorm (see bwd_apply_kernel).
 //
 // Types: T is float, __nv_bfloat16, __half or double; every sum and
 // coefficient is in A = promote(T, float), i.e. float for float, bf16 and f16
@@ -74,6 +76,16 @@ template <> __device__ __forceinline__ __half from_acc<__half, float>(float v) {
   return __float2half_rn(v);
 }
 template <> __device__ __forceinline__ double from_acc<double, double>(double v) { return v; }
+
+// T(T(u) + T(v)): u and v each rounded to T, their sum in T (round to nearest
+// even; __hadd of two halves or bfloat16s rounds their exact sum once).
+template <typename T, typename A> __device__ __forceinline__ T sum_rounded(A u, A v) {
+  if constexpr (std::is_same_v<T, A>) {
+    return u + v;
+  } else {
+    return __hadd(from_acc<T, A>(u), from_acc<T, A>(v));
+  }
+}
 
 // VEC neighbouring values of T moved as one access (16 bytes at the wide
 // width); the alignment makes the compiler emit one vector load or store.
@@ -255,8 +267,9 @@ finalize_partials(const A* __restrict__ ws, A* __restrict__ out, int G, int C) {
 
 // out = k0*a + k1 (NIN = 1) or k0*a + k1 + k2*b (NIN = 2), per channel, with
 // k = coef[0:NIN+1, :] held in registers: VUNROLL accesses per input in
-// flight, each rewritten in place and stored.
-template <typename T, int VEC, int NIN>
+// flight, each rewritten in place and stored. SPLIT (NIN = 2) rounds k0*a and
+// k1 + k2*b to T apart and adds the two in T.
+template <typename T, int VEC, int NIN, bool SPLIT = false>
 __device__ __forceinline__ void affine_rows(const T* __restrict__ a, const T* __restrict__ b,
                                             const typename Acc<T>::type* __restrict__ coef,
                                             T* __restrict__ out, int64_t m, int C) {
@@ -274,9 +287,13 @@ __device__ __forceinline__ void affine_rows(const T* __restrict__ a, const T* __
   auto map = [&](Pack<T, VEC>& g, const Pack<T, VEC>& v) {
 #pragma unroll
     for (int i = 0; i < VEC; ++i) {
-      A y = k[0][i] * to_acc(g.v[i]) + k[1][i];
-      if constexpr (NIN == 2) y += k[2][i] * to_acc(v.v[i]);
-      g.v[i] = from_acc<T, A>(y);
+      if constexpr (SPLIT) {
+        g.v[i] = sum_rounded<T, A>(k[0][i] * to_acc(g.v[i]), k[1][i] + k[2][i] * to_acc(v.v[i]));
+      } else {
+        A y = k[0][i] * to_acc(g.v[i]) + k[1][i];
+        if constexpr (NIN == 2) y += k[2][i] * to_acc(v.v[i]);
+        g.v[i] = from_acc<T, A>(y);
+      }
     }
   };
   const int64_t stride = static_cast<int64_t>(l.rows) * C;  // elements per pass
@@ -317,14 +334,19 @@ apply_kernel(const T* __restrict__ x, const typename Acc<T>::type* __restrict__ 
 }
 
 // Replaces pallas_bn.py:_bwd_apply_kernel: dx = a*dy + c1 + c2*x with
-// per-channel coef = [a, c1, c2]. Bound: reads dy and x and writes dx once,
-// 3*M*C*sizeof(T) bytes.
-template <typename T, int VEC>
+// per-channel coef = [a, c1, c2], rounded once to T. With SPLIT, dx =
+// T(a*dy) + T(c1 + c2*x): the dy path and the statistics' path rounded apart,
+// then added in T. That is the dx autodiff gives the JAX model's BatchNorm
+// (_TorchBatchNorm, models/layers.py), which casts x to float32 twice, once
+// for the statistics and once to normalise; the model's BatchNorm2d takes it.
+// For float and double the casts are no-ops. Bound (either): reads dy and x
+// and writes dx once, 3*M*C*sizeof(T) bytes.
+template <typename T, int VEC, bool SPLIT>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 bwd_apply_kernel(const T* __restrict__ dy, const T* __restrict__ x,
                  const typename Acc<T>::type* __restrict__ coef, T* __restrict__ dx,
                  int64_t m, int C) {
-  affine_rows<T, VEC, 2>(dy, x, coef, dx, m, C);
+  affine_rows<T, VEC, 2, SPLIT>(dy, x, coef, dx, m, C);
 }
 
 inline dim3 vec_grid(int G, int C, int vec) {
@@ -393,13 +415,13 @@ int run_apply(const void* x, const void* ab, void* y, int64_t m, int C, int G, i
   });
 }
 
-template <typename T>
+template <typename T, bool SPLIT>
 int run_bwd_apply(const void* dy, const void* x, const void* coef, void* dx, int64_t m, int C,
                   int G, int vec, cudaStream_t s) {
   using A = typename Acc<T>::type;
   return at_width<T>(vec, C, {dy, x, dx}, [&](auto w) {
     constexpr int V = decltype(w)::value;
-    bwd_apply_kernel<T, V><<<vec_grid(G, C, V), THREADS, 0, s>>>(
+    bwd_apply_kernel<T, V, SPLIT><<<vec_grid(G, C, V), THREADS, 0, s>>>(
         static_cast<const T*>(dy), static_cast<const T*>(x), static_cast<const A*>(coef),
         static_cast<T*>(dx), m, C);
   });
@@ -407,10 +429,10 @@ int run_bwd_apply(const void* dy, const void* x, const void* coef, void* dx, int
 
 }  // namespace
 
-// Plain C entry points, one per kernel and input type (f32, bf16, f16, f64), bound
-// with ctypes by ops/bn.py. G is the number of row ranges (blockIdx.x); vec
-// the channels a thread moves in one access: 1, or 16 / sizeof(T) where C and
-// the [M, C] pointers allow it.
+// Plain C entry points, one per kernel (bwd_apply_split: bwd_apply with SPLIT)
+// and input type (f32, bf16, f16, f64), bound with ctypes by ops/bn.py. G is
+// the number of row ranges (blockIdx.x); vec the channels a thread moves in
+// one access: 1, or 16 / sizeof(T) where C and the [M, C] pointers allow it.
 #define FBT_BN_ENTRY_POINTS(SUFFIX, T)                                                         \
   extern "C" int fbt_bn_stats_##SUFFIX(const void* x, void* ws, void* out, int64_t m, int C,   \
                                        int G, int vec, void* stream) {                         \
@@ -428,7 +450,14 @@ int run_bwd_apply(const void* dy, const void* x, const void* coef, void* dx, int
   extern "C" int fbt_bn_bwd_apply_##SUFFIX(const void* dy, const void* x, const void* coef,    \
                                            void* dx, int64_t m, int C, int G, int vec,         \
                                            void* stream) {                                     \
-    return run_bwd_apply<T>(dy, x, coef, dx, m, C, G, vec, static_cast<cudaStream_t>(stream)); \
+    return run_bwd_apply<T, false>(dy, x, coef, dx, m, C, G, vec,                              \
+                                   static_cast<cudaStream_t>(stream));                         \
+  }                                                                                            \
+  extern "C" int fbt_bn_bwd_apply_split_##SUFFIX(const void* dy, const void* x,                \
+                                                 const void* coef, void* dx, int64_t m, int C, \
+                                                 int G, int vec, void* stream) {               \
+    return run_bwd_apply<T, true>(dy, x, coef, dx, m, C, G, vec,                               \
+                                  static_cast<cudaStream_t>(stream));                          \
   }
 
 FBT_BN_ENTRY_POINTS(f32, float)

@@ -19,14 +19,29 @@ that computed in float32 fails:
   float16 than to float32;
 * a ResNet-20 (width 8) in float16: train-mode logits and the parameter
   gradient, in relative L2; the gradient closer to float16;
+* ``Linear`` and ``Conv2d`` in float16 against flax ``Dense`` and ``Conv``
+  (the bias added after the rounded product), and on the CPU each product
+  and its gradients within 10x JAX's own count of entries off the float64
+  result rounded once;
 * 2 ``hyp=fb1`` steps of ``train()`` under ``impl.compute_dtype=float16``
   and under ``impl.dtype=float16`` from the JAX weights: params and
   running stats in relative L2, each step's losses and gradient norm; the
   running stats (and float16 params) closer to float16;
+* ``bn_train`` in float16 at the shape of a ResNet-20's last ``bn2``, with
+  a scale near 1e-4 so that ``dx`` lies below float16's normal range: the
+  default against the Pallas functions, ``split_dx=True`` against the JAX
+  model's BatchNorm (``_TorchBatchNorm``), which rounds ``dx``'s two parts
+  apart; the two JAX functions' counts of exactly-zero ``dx`` differ;
 * one chunk's gradient at the weights of those 2 JAX steps, through the
   port's ``Trainer``: within the control, closer to float16, and with its
   count of exactly-zero entries (float16 underflow adds to float32's)
-  closer to the JAX float16 count than to the float32 one;
+  closer to the JAX float16 count than to the float32 one, and within 10x
+  the control's distance of it (20 entries at least); each layer-3 leaf
+  within 10x the control in relative L2;
+* one residual block of layer 3 at those weights, fed the same seeded
+  float16 activation and cotangent in both packages: its last BatchNorm's
+  forward, its backward, and the block's backward through ReLU, the
+  residual add and ``conv2``, in zero counts and values;
 * under ``impl.dtype=bfloat16`` and ``float16`` the port keeps its running
   stats in float32, as the JAX ``batch_stats``; after the 2 steps both
   packages' eval-mode logits on the JAX weights agree within the control.
@@ -50,14 +65,17 @@ import fullbatchtraining_tpu.training.training as jax_training
 from fullbatchtraining_tpu.config import load_config as jax_load_config
 from fullbatchtraining_tpu.data import construct_databundle as jax_databundle
 from fullbatchtraining_tpu.data.augmentations import normalize as jax_normalize
+from fullbatchtraining_tpu.models.layers import BatchNorm2d as JaxBatchNorm2d
+from fullbatchtraining_tpu.models.layers import get_layer_functions as jax_layer_functions
 from fullbatchtraining_tpu.models.modules import get_loss_fn as jax_loss_fn
+from fullbatchtraining_tpu.models.resnets import BasicBlock as JaxBasicBlock
 from fullbatchtraining_tpu.ops import pallas_bn
 from fullbatchtraining_tpu.parallel import make_mesh
 from fullbatchtraining_tpu.training.training import train as jax_train
 from fullbatchtraining_tpu_torch.config import load_config
 from fullbatchtraining_tpu_torch.convert import export_jax_variables, load_jax_variables
 from fullbatchtraining_tpu_torch.data import construct_databundle
-from fullbatchtraining_tpu_torch.models import construct_model
+from fullbatchtraining_tpu_torch.models import construct_model, layers
 from fullbatchtraining_tpu_torch.ops import bn
 from fullbatchtraining_tpu_torch.training import train
 from fullbatchtraining_tpu_torch.training.training import Trainer, place_model
@@ -85,6 +103,12 @@ def _rel_l2(a, b):
 
 def _zeros(tree):
     return sum(int(np.sum(_f64(x) == 0)) for x in jax.tree.leaves(tree))
+
+
+def _zero_limit(control_zeros, ref_zeros):
+    """How far a zero count may lie from the JAX one: 10x the control's
+    distance, and no less than 20 entries."""
+    return max(20, 10 * abs(control_zeros - ref_zeros))
 
 
 # --------------------------------------------------------------------------
@@ -147,6 +171,77 @@ def test_bn_train_float16_matches_jax(shape, _interpret):
         assert np.abs(ours[i] - half[i]).max() < np.abs(ours[i] - single[i]).max(), what
 
 
+# the last bn2 of a ResNet-20 at width 8 on 8 images: [8, 8, 8, 32]
+BN2_SHAPE = (8, 8, 8, 32)
+
+
+def _jax_model_bn(x, scale, bias):
+    """The JAX model's train-mode BatchNorm (``layers.BatchNorm2d``) as its
+    step runs it, on params cast to float16: ``(y, mean, var)``, the
+    statistics in the expressions of ``_TorchBatchNorm``."""
+    c = scale.shape[0]
+    params = {"bn": {"scale": scale.astype(jnp.float16), "bias": bias.astype(jnp.float16)}}
+    stats = {"bn": {"mean": jnp.zeros(c, jnp.float32), "var": jnp.ones(c, jnp.float32)}}
+    y, _ = JaxBatchNorm2d(c).apply({"params": params, "batch_stats": stats}, x, train=True,
+                                   mutable=["batch_stats"])
+    xf = x.astype(jnp.float32)
+    axes = tuple(range(x.ndim - 1))
+    mean = jnp.mean(xf, axes)
+    return y, mean, jnp.mean(jnp.square(xf), axes) - jnp.square(mean)
+
+
+def test_bn_train_float16_subnormal_gradient_matches_jax(_interpret):
+    """A ``bn2``-like BatchNorm: scales of 1e-4 to 1e-3, ``dx`` below float16's
+    smallest normal number, where a rounding step is an absolute 6e-8. The
+    default ``bn_train`` rounds ``dx`` once, as ``pallas_bn`` does (its
+    reference and, in interpret mode, its kernels); ``split_dx=True`` with
+    float16 scale and bias, as the model's BatchNorm calls it, rounds
+    ``a*dy`` and ``c1 + c2*x`` apart, as autodiff of the JAX model's
+    BatchNorm does. Each lies within the control of its JAX function,
+    element by element and in its count of exactly-zero ``dx``; the two
+    JAX functions' counts differ by more than that."""
+    rng = np.random.default_rng(14)
+    c = BN2_SHAPE[-1]
+    x = _f64(jnp.asarray(rng.standard_normal(BN2_SHAPE) * 0.7 + 0.8, jnp.float16))
+    scale = _f64(jnp.asarray(10.0 ** rng.uniform(-4, -3, c), jnp.float16))
+    bias = _f64(jnp.asarray(rng.standard_normal(c) * 0.1, jnp.float16))
+    # a cotangent that came through the block's last ReLU: a quarter of it
+    # zero, and a mean per channel
+    cot = (rng.uniform(size=BN2_SHAPE) > 0.25) * (rng.standard_normal(BN2_SHAPE)
+                                                  + 2 * rng.standard_normal(c))
+    cot = _f64(jnp.asarray(cot * 1e-4, jnp.float16))
+    off = (_perturbed(x, 1), _perturbed(scale, 2), _perturbed(bias, 3), _perturbed(cot, 4))
+    names = ("y", "mean", "var", "dx", "dscale", "dbias")
+
+    zeros = {}
+    for split, fn in ((False, pallas_bn.bn_train_reference), (True, _jax_model_bn)):
+        affine = torch.float16 if split else torch.float32
+        tx = torch.tensor(x, dtype=torch.float16, requires_grad=True)
+        ts = torch.tensor(scale, dtype=affine, requires_grad=True)
+        tb = torch.tensor(bias, dtype=affine, requires_grad=True)
+        y, mean, var = bn.bn_train(tx, ts, tb, split_dx=split)
+        grads = torch.autograd.grad(y, (tx, ts, tb), torch.tensor(cot, dtype=torch.float16))
+        ours = [t.detach().double().numpy() for t in (y, mean, var, *grads)]
+        theirs = _jax_bn(fn, x, scale, bias, cot, jnp.float16)
+        control = _jax_bn(fn, *off, jnp.float16)
+        oracles = [theirs]
+        if not split and pallas_bn.supported(jnp.asarray(x, jnp.float16)):
+            oracles.append(_jax_bn(pallas_bn.bn_train, x, scale, bias, cot, jnp.float16))
+        for oracle in oracles:
+            for what, o, t, ref, ctl in zip(names, ours, oracle, theirs, control):
+                tol = np.abs(ctl - ref).max()
+                assert np.abs(o - t).max() <= tol, (split, what, np.abs(o - t).max(), tol)
+            counts = [int(np.sum(a[3] == 0)) for a in (ours, oracle, control)]
+            assert abs(counts[0] - counts[1]) <= _zero_limit(counts[2], counts[1]), (split,
+                                                                                    counts)
+        assert np.abs(theirs[3]).max() < 6.1e-5     # below float16's normal range
+        zeros[split] = counts
+        print(f"split_dx={split}: exactly-zero dx entries: port {counts[0]}, JAX {counts[1]}, "
+              f"JAX from inputs 2^-11 off {counts[2]} of {x.size}")
+    once, apart = zeros[False][1], zeros[True][1]
+    assert abs(once - apart) > _zero_limit(zeros[True][2], apart), (once, apart)
+
+
 # --------------------------------------------------------------------------
 # a ResNet-20's forward and gradient
 # --------------------------------------------------------------------------
@@ -203,6 +298,108 @@ def test_resnet20_float16_forward_and_gradient_match_jax():
         assert _rel_l2(ours, ref) <= tol, (what, _rel_l2(ours, ref), tol)
     # the logits are one float16 rounding from the float32 ones on either side
     assert _rel_l2(ours_grads, theirs[1]) < _rel_l2(ours_grads, f32[1])
+
+
+# layer: (input shape, weight shape, the torch product and its arguments)
+PRODUCTS = {
+    "linear": ((256, 32), (10, 32), (torch.nn.functional.linear,)),
+    "conv": ((8, 8, 8, 32), (16, 32, 3, 3), (torch.nn.functional.conv2d, 1, 1, 1, 1)),
+}
+
+
+def _flax_product(layer, x, w, b, cot):
+    """``(y, dx, dw)`` of flax ``Dense`` or ``Conv`` in float16, the bias
+    ``b`` added after the product (none where ``b`` is None), ``dw`` in the
+    torch weight's layout."""
+    import flax.linen as flax_nn
+
+    if layer == "linear":
+        module, kernel = flax_nn.Dense(w.shape[0], use_bias=b is not None), w.T
+    else:
+        module = flax_nn.Conv(w.shape[0], (3, 3), padding=((1, 1), (1, 1)),
+                              use_bias=b is not None)
+        kernel = w.transpose(2, 3, 1, 0)
+    params = {"kernel": jnp.asarray(kernel, jnp.float16)}
+    if b is not None:
+        params["bias"] = jnp.asarray(b, jnp.float16)
+    y, vjp = jax.vjp(lambda p, x_: module.apply({"params": p}, x_), params,
+                     jnp.asarray(x, jnp.float16))
+    dp, dx = vjp(jnp.asarray(cot, jnp.float16))
+    dw = _f64(dp["kernel"])
+    dw = dw.T if layer == "linear" else dw.transpose(3, 2, 0, 1)
+    return _f64(y), _f64(dx), dw
+
+
+def _exact_product(layer, x, w, cot):
+    """``(y, dx, dw)`` of the product without bias in float64, each rounded
+    once to float16."""
+    tx = torch.tensor(x, dtype=torch.float64, requires_grad=True)
+    tw = torch.tensor(w, dtype=torch.float64, requires_grad=True)
+    if layer == "linear":
+        y = torch.nn.functional.linear(tx, tw)
+    else:
+        y = torch.nn.functional.conv2d(tx.permute(0, 3, 1, 2), tw, padding=1).permute(0, 2, 3, 1)
+    grads = torch.autograd.grad(y, (tx, tw), torch.tensor(cot, dtype=torch.float64))
+    return [t.detach().half().double().numpy() for t in (y, *grads)]
+
+
+@pytest.mark.parametrize("layer", ["linear", "conv"])
+@pytest.mark.parametrize("case", ["float16-compute", "float16-params"])
+def test_products_float16_match_flax(case, layer):
+    """The classifier and the convolutions in float16 (float16 params, or
+    float32 ones under autocast), with a cotangent below float16's normal
+    range. Flax ``Dense`` and ``Conv`` round the product to float16 and add
+    the bias in float16; the port's ``Linear`` and ``Conv2d`` do the same
+    (``F.linear``/``F.conv2d`` with the bias fused round once), and differ
+    from JAX in fewer outputs than the fused form does; the port lies within
+    the control (JAX from inputs 2^-11 off). On the CPU the port computes a
+    float16 product in float32 and rounds once, as XLA does: its output and
+    both gradients differ from the float64 product rounded once to float16
+    in no more entries than 10x JAX's own count (20 at least), on any host
+    (torch's CPU float16 kernels round as they accumulate on a host with
+    AVX512-FP16)."""
+    rng = np.random.default_rng(8)
+    x_shape, w_shape, (fn, *args) = PRODUCTS[layer]
+    x = _f64(jnp.asarray(rng.standard_normal(x_shape) * 0.5, jnp.float16))
+    w = _f64(jnp.asarray(rng.standard_normal(w_shape) * 0.2, jnp.float16))
+    b = _f64(jnp.asarray(rng.standard_normal(w_shape[0]) * 0.2, jnp.float16))
+    y_shape = (*x_shape[:-1], w_shape[0])
+    cot = _f64(jnp.asarray(rng.standard_normal(y_shape) * 1e-5, jnp.float16))
+
+    theirs = _flax_product(layer, x, w, b, cot)
+    control = _flax_product(layer, _perturbed(x, 1), _perturbed(w, 2), _perturbed(b, 3),
+                            _perturbed(cot, 4))
+    product = _flax_product(layer, x, w, None, cot)[0]
+    exact = _exact_product(layer, x, w, cot)
+    half = case == "float16-params"
+    module = (layers.Linear(x_shape[-1], w_shape[0]) if layer == "linear"
+              else layers.Conv2d(x_shape[-1], w_shape[0], 3, padding=1))
+    with torch.no_grad():
+        module.weight.copy_(torch.tensor(w))
+        module.bias.copy_(torch.tensor(b))
+    module.to(torch.float16 if half else torch.float32)
+    tx = torch.tensor(x, dtype=torch.float16, requires_grad=True)
+    nchw = (lambda t: t) if layer == "linear" else (lambda t: t.permute(0, 3, 1, 2))
+    nhwc = (lambda t: t) if layer == "linear" else (lambda t: t.permute(0, 2, 3, 1))
+    with torch.autocast("cpu", dtype=torch.float16, enabled=not half):
+        y = nhwc(module(nchw(tx)))
+        fused = nhwc(fn(nchw(tx), module.weight, module.bias, *args[1:]))
+        prod = nhwc(layers.half_product(fn, nchw(tx), module.weight, *args[1:]))
+    assert y.dtype == fused.dtype == prod.dtype == torch.float16
+    dx, dw = torch.autograd.grad(y, (tx, module.weight), torch.tensor(cot).half())
+    ours = [t.detach().double().numpy() for t in (y, dx, dw)]
+    fused, prod = (t.detach().double().numpy() for t in (fused, prod))
+    for what, o, t, c in zip(("y", "dx", "dw"), ours, theirs, control):
+        assert np.abs(o - t).max() <= np.abs(c - t).max(), (what, np.abs(o - t).max())
+    print(f"{case} {layer}: outputs that differ from flax: port {np.sum(ours[0] != theirs[0])}, "
+          f"fused bias {np.sum(fused != theirs[0])} of {fused.size}")
+    assert np.sum(ours[0] != theirs[0]) < np.sum(fused != theirs[0])
+    for what, o, t, e in zip(("product", "dx", "dw"), (prod, *ours[1:]),
+                             (product, *theirs[1:]), exact):
+        mine, jax_count = np.sum(o != e), np.sum(t != e)
+        print(f"  {what}: entries off the float64 product rounded once: port {mine}, "
+              f"JAX {jax_count} of {e.size}")
+        assert mine <= max(20, 10 * jax_count), (what, mine, jax_count)
 
 
 # --------------------------------------------------------------------------
@@ -299,12 +496,13 @@ def test_train_float16_matches_jax(case):
     assert stats["train_acc"] == ref_stats["train_acc"]
 
 
-@pytest.mark.parametrize("case", ["float16-compute", "float16-params"])
-def test_float16_gradient_underflow_matches_jax(case):
+@functools.cache
+def _chunk_gradients(case):
     """One chunk's gradient (8 training images) at the weights of the 2 JAX
-    steps, the port's through its ``Trainer`` (autocast under
-    ``float16-compute``), the JAX one as its step takes it: params cast to
-    float16. Float16 underflows entries to exactly zero that float32 keeps."""
+    steps of ``case``: ``(port, JAX float16, JAX float32, JAX float16 from
+    weights 2^-11 off)`` as trees of the JAX params' layout. The port's
+    runs through its ``Trainer`` (autocast under ``float16-compute``), the
+    JAX one as its step takes it: params cast to float16."""
     params, batch_stats, _ = _jax_run(case)
     cfg = load_config(CONFIG, overrides=BASE + CASES[case])
     bundle = construct_databundle(cfg.data, cfg.impl, cfg.hyp, seed=0)
@@ -338,6 +536,14 @@ def test_float16_gradient_underflow_matches_jax(case):
     for p, g in zip(probe.parameters(), grads):
         p.data.copy_(g)
     ours = export_jax_variables(probe)["params"]
+    return ours, theirs, single, off
+
+
+@pytest.mark.parametrize("case", ["float16-compute", "float16-params"])
+def test_float16_gradient_underflow_matches_jax(case):
+    """One chunk's gradient (:func:`_chunk_gradients`). Float16 underflows
+    entries to exactly zero that float32 keeps."""
+    ours, theirs, single, off = _chunk_gradients(case)
 
     assert _rel_l2(ours, theirs) <= _rel_l2(off, theirs), (_rel_l2(ours, theirs),
                                                            _rel_l2(off, theirs))
@@ -348,6 +554,138 @@ def test_float16_gradient_underflow_matches_jax(case):
     print(f"exactly-zero entries: port {_zeros(ours)}, JAX float16 {_zeros(theirs)}, "
           f"JAX float16 from weights 2^-11 off {_zeros(off)}, JAX float32 {_zeros(single)} "
           f"of {sum(np.size(a) for a in jax.tree.leaves(theirs))}")
+
+
+@pytest.mark.parametrize("case", ["float16-compute", "float16-params"])
+def test_float16_gradient_zero_count_within_jax_noise(case):
+    """The chunk gradient's count of exactly-zero entries lies within 10x
+    the control's distance of the JAX count (20 entries at least), and each
+    layer-3 leaf, whose gradient lies wholly below float16's normal range,
+    within 10x the control's relative L2 of that leaf. Prints the per-leaf
+    counts: port, JAX, control."""
+    ours, theirs, _, off = _chunk_gradients(case)
+    rows = []
+    for (path, o), t, c in zip(jax.tree_util.tree_flatten_with_path(ours)[0],
+                               jax.tree.leaves(theirs), jax.tree.leaves(off)):
+        name = "/".join(str(getattr(k, "key", k)) for k in path)
+        norm = np.linalg.norm(t)
+        rows.append((name, *(int(np.sum(a == 0)) for a in (o, t, c)),
+                     np.linalg.norm(o - t) / norm, np.linalg.norm(c - t) / norm))
+    print(f"{case}: leaf, exactly-zero entries (port, JAX, JAX from weights 2^-11 off), "
+          "relative L2 to JAX (port, control)")
+    for name, zo, zt, zc, ro, rc in rows:
+        print(f"  {name:45s} {zo:6d} {zt:6d} {zc:6d}  {ro:.3e} {rc:.3e}")
+    counts = [_zeros(t) for t in (ours, theirs, off)]
+    print(f"  total {counts}")
+    assert abs(counts[0] - counts[1]) <= _zero_limit(counts[2], counts[1]), counts
+    layer3 = [r for r in rows if r[0].startswith("layer3_")]
+    assert len(layer3) == 21     # 3 blocks of 6 leaves, and the downsample's 3
+    for name, *_, ro, rc in layer3:
+        assert ro <= 10 * rc, (name, ro, rc)
+
+
+def _block_inputs(seed):
+    """Seeded float16 inputs of ``layer3_block2`` at 8 images: the block's
+    input (a ReLU's output), its output's cotangent, ``bn2``'s input (a
+    conv's output) and ``bn2``'s output cotangent (through the block's last
+    ReLU: a quarter zero, a mean per channel), all ``[8, 8, 8, 32]`` NHWC."""
+    rng = np.random.default_rng(seed)
+    c = BN2_SHAPE[-1]
+    block_x = np.maximum(rng.standard_normal(BN2_SHAPE) + 0.3, 0)
+    block_cot = (rng.standard_normal(BN2_SHAPE) + 2 * rng.standard_normal(c)) * 1e-4
+    bn_x = rng.standard_normal(BN2_SHAPE) * 0.7 + 0.8
+    bn_cot = (rng.uniform(size=BN2_SHAPE) > 0.25) * block_cot
+    return [_f64(jnp.asarray(a, jnp.float16)) for a in (block_x, block_cot, bn_x, bn_cot)]
+
+
+def _port_block(case):
+    """The port's ``layer3_block2`` (train mode) at the 2 JAX steps' weights
+    and how its ``Trainer`` runs it: float16 params, or float32 params
+    under float16 autocast."""
+    params, batch_stats, _ = _jax_run(case)
+    _, model = _resnet20()
+    load_jax_variables(model, {"params": jax.tree.map(_f64, params), "batch_stats": batch_stats})
+    half = case == "float16-params"
+    place_model(model, "cpu", torch.float16 if half else torch.float32)
+    autocast = torch.autocast("cpu", dtype=torch.float16, enabled=not half)
+    return model.layer3_block2.train(), autocast
+
+
+def _port_vjp(module, autocast, x, cot):
+    """``(output, input gradient, param gradients as a JAX tree)`` of a port
+    module on NHWC float16 ``x`` and ``cot``."""
+    tx = torch.tensor(x, dtype=torch.float16, requires_grad=True)
+    with autocast:
+        y = module(tx.permute(0, 3, 1, 2))   # channels_last NCHW, as the model's
+    params = list(module.parameters())
+    grads = torch.autograd.grad(y, [tx] + params,
+                                torch.tensor(cot, dtype=torch.float16).permute(0, 3, 1, 2))
+    probe = copy.deepcopy(module).double()
+    for p, g in zip(probe.parameters(), grads[1:]):
+        p.data.copy_(g)
+    return (y.detach().permute(0, 2, 3, 1).double().numpy(), grads[0].double().numpy(),
+            export_jax_variables(probe)["params"])
+
+
+def _jax_vjp(module, params, stats, x, cot):
+    """The same of a JAX module, its params cast to float16 as the step does."""
+    def fn(p, x_):
+        p = jax.tree.map(lambda a: a.astype(jnp.float16), p)
+        return module.apply({"params": p, "batch_stats": stats}, x_, train=True,
+                            mutable=["batch_stats"])[0]
+    y, vjp = jax.vjp(fn, params, jnp.asarray(x, jnp.float16))
+    dp, dx = vjp(jnp.asarray(cot, jnp.float16))
+    return _f64(y), _f64(dx), jax.tree.map(_f64, dp)
+
+
+@pytest.mark.parametrize("case", ["float16-compute", "float16-params"])
+def test_layer3_block_float16_matches_jax(case):
+    """The chunk gradient's parts, in ``layer3_block2`` at the 2 JAX steps'
+    weights, fed the same seeded float16 inputs in both packages: (a) the
+    ``bn2`` forward, (b) its backward, (c) the block's backward through
+    ReLU, the residual add and ``conv2``. Values within the control (JAX from
+    inputs 2^-11 off; for (c), 10x its relative L2), and counts of exactly
+    zero entries within 10x its distance (20 entries at least)."""
+    params, batch_stats, _ = _jax_run(case)
+    jp, js = params["layer3_block2"], batch_stats["layer3_block2"]
+    block, autocast = _port_block(case)
+    block_x, block_cot, bn_x, bn_cot = _block_inputs(21)
+    off = [_perturbed(a, 22 + i) for i, a in enumerate((block_x, block_cot, bn_x, bn_cot))]
+
+    jbn = JaxBatchNorm2d(BN2_SHAPE[-1])
+    ours = _port_vjp(block.bn2, autocast, bn_x, bn_cot)
+    theirs = _jax_vjp(jbn, jp["bn2"], js["bn2"], bn_x, bn_cot)
+    control = _jax_vjp(jbn, jp["bn2"], js["bn2"], off[2], off[3])
+    for what, o, t, c in (("(a) bn2 y", ours[0], theirs[0], control[0]),
+                          ("(b) bn2 dx", ours[1], theirs[1], control[1]),
+                          ("(b) bn2 dscale", ours[2]["bn"]["scale"], theirs[2]["bn"]["scale"],
+                           control[2]["bn"]["scale"]),
+                          ("(b) bn2 dbias", ours[2]["bn"]["bias"], theirs[2]["bn"]["bias"],
+                           control[2]["bn"]["bias"])):
+        zeros = [int(np.sum(a == 0)) for a in (o, t, c)]
+        err, tol = np.abs(o - t).max(), np.abs(c - t).max()
+        print(f"{case} {what}: exactly zero (port, JAX, control) {zeros} of {t.size}; "
+              f"max |port - JAX| {err:.3g}, control {tol:.3g}")
+        assert err <= tol, (what, err, tol)
+        assert abs(zeros[0] - zeros[1]) <= _zero_limit(zeros[2], zeros[1]), (what, zeros)
+    assert 0 < np.abs(theirs[1]).max() < 6.1e-5        # dx below float16's normal range
+
+    conv, norm, nonlin = jax_layer_functions("Standard", "BatchNorm2d", "ReLU")
+    jblock = JaxBasicBlock(planes=BN2_SHAPE[-1], stride=1, conv=conv, norm=norm, nonlin=nonlin,
+                           use_bias=False)
+    ours = _port_vjp(block, autocast, block_x, block_cot)
+    theirs = _jax_vjp(jblock, jp, js, block_x, block_cot)
+    control = _jax_vjp(jblock, jp, js, off[0], off[1])
+    for what, o, t, c in [("(c) block dx", ours[1], theirs[1], control[1])] + [
+            (f"(c) block d{name}", *(tree[name]["kernel"] for tree in
+                                     (ours[2], theirs[2], control[2])))
+            for name in ("conv2", "conv1")]:
+        zeros = [int(np.sum(a == 0)) for a in (o, t, c)]
+        rel, tol = (np.linalg.norm(a - t) / np.linalg.norm(t) for a in (o, c))
+        print(f"{case} {what}: exactly zero (port, JAX, control) {zeros} of {t.size}; "
+              f"relative L2 to JAX {rel:.3g}, control {tol:.3g}")
+        assert rel <= 10 * tol, (what, rel, tol)
+        assert abs(zeros[0] - zeros[1]) <= _zero_limit(zeros[2], zeros[1]), (what, zeros)
 
 
 @pytest.mark.parametrize("case", ["bfloat16-params", "float16-params"])
