@@ -185,24 +185,24 @@ Phases, in order; any failure exits non-zero before the result lines:
    ``hyp=fb1`` step as phase 3, each quantity beyond its tolerance held to
    10x a plain run from weights off by 2^-20.
    (c) ``impl.compute_dtype=float16`` at phase 4's width, 2 steps: every BN
-   launch a float16 one at 16 bytes, phase 4's launches a step and an
-   evaluation, the step times beside phase 4's, and the share of
-   exactly-zero entries of one chunk's gradient in float16, bf16 and
-   float32 at its trained weights (no loss scaling: a finding). (d) (c)
-   with ``impl.trace=True impl.trace_steps=1``: the trace's device events
-   of the four float16 kernels equal the launches of the traced step and
-   its evaluation, and the stats are bitwise (c)'s. (e) ``python -m
-   fullbatchtraining_tpu_torch --multirun seed=0,1`` (a dryrun at width 16)
-   makes ``<sweep>/0`` and ``<sweep>/1``, each with its log. (f) One
-   chunk's float16 gradient (the first ``F16_CHUNK_IMAGES`` training images)
+   launch at 16 bytes, phase 4's launches a step and an evaluation, the
+   step times beside phase 4's, and the share of exactly-zero entries of
+   one chunk's gradient in float16, bf16 and float32 at its trained
+   weights (no loss scaling: a finding). (d) (c) with ``impl.trace=True
+   impl.trace_steps=1``: the trace's device events of the four float16
+   kernels equal the launches of the traced step and its evaluation, so
+   each was a float16 instance, and the stats are bitwise (c)'s. (e)
+   ``python -m fullbatchtraining_tpu_torch --multirun seed=0,1`` (a dryrun
+   at width 16) makes ``<sweep>/0`` and ``<sweep>/1``, each with its log.
+   (f) One chunk's float16 gradient (the first ``F16_CHUNK_IMAGES``
+   training images)
    at (c)'s weights on the card, through the float16 kernel instances and
    cuDNN, against the port's CPU path (the plain versions), which the CPU
    tests hold to the JAX package; the control is the CPU path from weights
    2^-11 off. The entries exactly zero on one side only (card or CPU, not
    both) and the relative L2 must lie within 10x the control's; the net
    count of exact zeros, which cancels across leaves, is printed beside
-   the control's. Its BN launches: one float16 launch of each kernel a
-   layer, nothing in another type.
+   the control's. Its BN launches: one of each kernel a layer.
 
 The last lines are the card line, a JSON object of per-kernel numbers (their
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` sum the 20 BN layers of
@@ -3110,12 +3110,12 @@ F16_KERNELS = {"stats": "::stats_partial<__half", "apply": "::apply_kernel<__hal
 
 def f16_run(torch, bn, extra=()):
     """``F16_FULL`` (and ``extra``) through ``training.train``, counts set
-    to 0 just before: ``(stats, launches by kernel and input type, launches
-    at 16 bytes, the run)``."""
+    to 0 just before: ``(stats, launches, launches at 16 bytes, the run)``.
+    Every BN input of the run is float16, so every launch is one of the
+    float16 instances (16d holds the trace's kernel names to that)."""
     bn.reset_counts()
     run = run_main_path(torch, F16_FULL + list(extra))
-    return (run[4], {k: dict(v) for k, v in bn.dtype_launches.items()},
-            dict(bn.vector_launches), run)
+    return run[4], dict(bn.launches), dict(bn.vector_launches), run
 
 
 def zero_gradient_share(torch, model, bundle, extra):
@@ -3136,19 +3136,17 @@ def zero_gradient_share(torch, model, bundle, extra):
 
 
 def phase_f16_full_width(torch, bn, fb1):
-    """16c: ``F16_FULL`` through ``training.train``: every BN launch a
-    float16 one at 16 bytes, phase 4's bf16 launches a step and an
-    evaluation; the step times beside phase 4's; the share of exactly-zero
-    entries of one chunk's gradient in float16, bf16 and float32 at the
-    weights of its 2 steps (no loss scaling: a finding, not a gate)."""
-    stats, by_dtype, wide, (_, bundle, _, state, _) = f16_run(torch, bn)
+    """16c: ``F16_FULL`` through ``training.train``: every BN launch at 16
+    bytes, phase 4's bf16 launches a step and an evaluation; the step
+    times beside phase 4's; the share of exactly-zero entries of one
+    chunk's gradient in float16, bf16 and float32 at the weights of its 2
+    steps (no loss scaling: a finding, not a gate)."""
+    stats, f16, wide, (_, bundle, _, state, _) = f16_run(torch, bn)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    f16 = by_dtype["f16"]
     steps, evals = len(stats["train_loss"]), len(stats["valid_loss"])
     per_step = fb1_step_launches(fb1)
     expected = {k: per_step[k] * steps for k in KERNELS}
     expected["apply"] = per_step["apply"] * evals + per_step["stats"] * (steps - evals)
-    others = {k: v for k, v in by_dtype.items() if k != "f16" and any(v.values())}
     shares = {name: zero_gradient_share(torch, state.model, bundle, extra) for name, extra in (
         ("float16", F16), ("bfloat16", []), ("float32", ["impl.mixed_precision=False"]))}
     result = {"step_s": stats["train_time"], "phase_4_step_s": fb1["step_s"],
@@ -3159,12 +3157,11 @@ def phase_f16_full_width(torch, bn, fb1):
               "model": state.model, "bundle": bundle}    # 16f's; main pops them
     log(f"  steps {[f'{t:.3f}' for t in stats['train_time']]} s (phase 4, bf16: "
         f"{[f'{t:.3f}' for t in fb1['step_s']]} s); peak memory {peak_gib:.2f} GiB; train "
-        f"loss {stats['train_loss']}, valid loss {stats['valid_loss']}; f16 launches {f16} (expected {expected}); other types "
-        f"{others}; exactly-zero gradient entries of one chunk: "
+        f"loss {stats['train_loss']}, valid loss {stats['valid_loss']}; f16 launches {f16} "
+        f"(expected {expected}); exactly-zero gradient entries of one chunk: "
         + ", ".join(f"{k} {v:.4%}" for k, v in shares.items()))
     check(steps == 2 and evals == 2, f"{steps} steps and {evals} evaluations, expected 2 and 2")
     check(f16 == expected, f"float16 launches {f16}, expected phase 4's a step {expected}")
-    check(not others, f"BN launches in other types than float16: {others}")
     check(wide == f16, f"launches at 16 bytes {wide} of {f16}")
     check(all(map(math.isfinite, stats["train_loss"] + stats["valid_loss"])), "non-finite loss")
     return result
@@ -3206,21 +3203,21 @@ def phase_f16_card_against_cpu(torch, bn, model, bundle):
     zero on one side only (card or CPU, not both) and the relative L2. The
     net count of exact zeros is printed, not held: its gains and losses
     cancel across leaves, so that another draw of the offsets' signs can
-    move it by a few entries or by thousands. The card's BN launches
-    must be the float16 instances', one of each kernel a BN layer."""
+    move it by a few entries or by thousands. The card's BN launches (of
+    the float16 instances: every input is float16) must be one of each
+    kernel a BN layer."""
     import numpy as np
 
     bn.reset_counts()
     t0 = time.time()
     card = f16_chunk_gradient(torch, model, bundle, DEVICE)
     card_s = time.time() - t0
-    launches = {k: dict(v) for k, v in bn.dtype_launches.items()}
+    f16 = dict(bn.launches)
     t0 = time.time()
     cpu = f16_chunk_gradient(torch, model, bundle, "cpu")
     cpu_s = time.time() - t0
     control = f16_chunk_gradient(torch, model, bundle, "cpu", perturb=2.0 ** -11)
-    check({k: dict(v) for k, v in bn.dtype_launches.items()} == launches,
-          "the CPU runs launched kernels")
+    check(bn.launches == f16, "the CPU runs launched kernels")
     size = sum(g.numel() for g in cpu)
 
     def zeros(grads):
@@ -3236,8 +3233,6 @@ def phase_f16_card_against_cpu(torch, bn, model, bundle):
     z_card, z_cpu, z_control = zeros(card), zeros(cpu), zeros(control)
     side, side_control = one_side(card), one_side(control)
     rel, rel_control = rel_l2(card), rel_l2(control)
-    f16 = launches["f16"]
-    others = {k: v for k, v in launches.items() if k != "f16" and any(v.values())}
     result = {"images": F16_CHUNK_IMAGES, "entries": size,
               "zero_share": {"card": z_card / size, "cpu": z_cpu / size,
                              "cpu_control": z_control / size},
@@ -3259,7 +3254,6 @@ def phase_f16_card_against_cpu(torch, bn, model, bundle):
           f"{rel_control:.3e}")
     check(f16 == dict.fromkeys(bn.launches, BN_LAYERS),
           f"float16 launches {f16}, expected {BN_LAYERS} of each kernel")
-    check(not others, f"BN launches in other types than float16: {others}")
     return result
 
 
@@ -3286,7 +3280,7 @@ def phase_f16_trace(torch, bn, f16):
     os.chdir(TRACE_DIR)
     try:
         t0 = time.time()
-        stats, by_dtype, _, _ = f16_run(torch, bn, TRACE)
+        stats, launches, _, _ = f16_run(torch, bn, TRACE)
         wall = time.time() - t0
         file = TRACE_DIR / "torch_trace" / "rank0.json"
         exists = file.exists()
@@ -3295,7 +3289,7 @@ def phase_f16_trace(torch, bn, f16):
     finally:
         os.chdir(cwd)
         shutil.rmtree(TRACE_DIR, ignore_errors=True)
-    traced = {k: v // 2 for k, v in by_dtype["f16"].items()}
+    traced = {k: v // 2 for k, v in launches.items()}
     held = ("train_loss", "valid_loss", "grad_norm", "full_loss")
     differ = [k for k in held if stats[k] != f16["stats"][k]]
     result = {"trace_bytes": size, "kernel_events": events, "traced_launches": traced,
@@ -3304,7 +3298,7 @@ def phase_f16_trace(torch, bn, f16):
         f"step and evaluation {traced}; steps {[f'{t:.3f}' for t in stats['train_time']]} s "
         f"(untraced {[f'{t:.3f}' for t in f16['step_s']]}); stats that differ from 16c: {differ}")
     check(exists, "no trace file in torch_trace/")
-    check(by_dtype["f16"] == f16["launches_f16"], "the traced run launched otherwise than 16c")
+    check(launches == f16["launches_f16"], "the traced run launched otherwise than 16c")
     check(events == traced, f"trace events {events}, launches {traced}")
     check(not differ, f"tracing changed {differ}")
     return result

@@ -25,8 +25,7 @@ Each wrapper runs its kernel for a CUDA tensor and its plain PyTorch version
 for a CPU tensor; nothing falls back from one to the other. Inside
 :func:`plain_versions` the plain versions run on CUDA too (tests and the
 chip smoke compare the two that way). Each kernel launch adds one to
-``launches[name]`` and to ``dtype_launches[suffix][name]`` of its input
-type (``f32``, ``bf16``, ``f16``, ``f64``).
+``launches[name]``.
 
 Each kernel moves 16 bytes a thread per access where it can;
 :func:`launch_plan` picks the width from ``C``, the dtype and the tensors'
@@ -67,8 +66,6 @@ double_backward_calls = 0
 _force_plain = False
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16",
            torch.float64: "f64"}
-# launches by input type: {suffix: {name: count}}
-dtype_launches = {suffix: dict.fromkeys(launches, 0) for suffix in _SUFFIX.values()}
 # G: one wave of the blocks per SM that the kernels' __launch_bounds__ keep
 # resident (csrc MIN_BLOCKS)
 _BLOCKS_PER_SM = 3
@@ -77,7 +74,7 @@ _MIN_ELEMENTS_PER_BLOCK = 8192
 
 def reset_counts() -> None:
     global layout_copies, double_backward_calls
-    for counts in (launches, vector_launches, *dtype_launches.values()):
+    for counts in (launches, vector_launches):
         for name in counts:
             counts[name] = 0
     layout_copies = 0
@@ -212,9 +209,8 @@ def _plan(x: torch.Tensor, addresses: list[int]) -> tuple[int, int]:
     return launch_plan(_sm_count(x.device.index), m, c, x.dtype, *addresses)
 
 
-def _launched(name: str, dtype: torch.dtype, vec: int) -> None:
+def _launched(name: str, vec: int) -> None:
     launches[name] += 1
-    dtype_launches[_SUFFIX[dtype]][name] += 1
     if vec > 1:
         vector_launches[name] += 1
 
@@ -234,7 +230,7 @@ def _reduce(name: str, plain, *inputs: torch.Tensor) -> torch.Tensor:
     fn = getattr(_library(), f"fbt_bn_{name}_{_SUFFIX[x.dtype]}")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _check(fn(*ptrs, ws.data_ptr(), out.data_ptr(), m, c, g, vec, stream), name)
-    _launched(name, x.dtype, vec)
+    _launched(name, vec)
     return out
 
 
@@ -254,7 +250,7 @@ def _elementwise(name: str, plain, coef: torch.Tensor, *inputs: torch.Tensor,
     fn = getattr(_library(), f"fbt_bn_{entry or name}_{_SUFFIX[x.dtype]}")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _check(fn(*ptrs[:-1], coef.data_ptr(), ptrs[-1], m, c, g, vec, stream), name)
-    _launched(name, x.dtype, vec)
+    _launched(name, vec)
     return out
 
 

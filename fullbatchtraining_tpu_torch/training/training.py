@@ -63,7 +63,8 @@ under autocast to it; logits are cast to the stat dtype. Parameters take
 (:func:`place_model`). Float16 has no loss scaling, as in the JAX package:
 a gradient below float16's range is zero. With ``impl.trace`` the first
 ``impl.trace_steps`` steps run under ``torch.profiler``
-(:class:`StepTrace`).
+(:class:`StepTrace`); a full-batch step's phases open the spans of
+:mod:`..tracing` in any profiler that records.
 
 With ``analysis.type`` set, a step after which analysis is due and reads
 gradients first takes :meth:`Trainer.pre_step_gradient`, the gradient that
@@ -101,6 +102,8 @@ from ..models.models import estimate_activation_bytes
 from ..models.modules import get_loss_fn, layer_draws
 from ..parallel import World, all_reduce, all_reduce_parts, barrier, current_world
 from ..parallel.streaming import HostRows, host_tensor, stream_segments
+from ..tracing import (CHUNK, MODIFY_GRADIENT, REDUCE_PASS, REGULARIZER, STAGE, TO_HOST, UPDATE,
+                       span)
 from ..utils import resolve_device
 from .grad_reg import make_grad_regularizer, tree_add_scaled, tree_sqnorm
 from .opt.closures import DriverState, make_closure_step, make_stochastic_closure_step
@@ -362,28 +365,30 @@ class Trainer:
         host and uploaded. The labels are on the device in every case. With
         several ranks a step draws without replacement, as the JAX package's
         multi-process runs do."""
-        if not (self.shuffle or self.semi) and self.images is not None:
-            return self.images, self.labels
-        hyp = self.cfg.hyp
-        rows = self.num_blocks * self.chunks
-        n = self.round_size
-        replace = bool(hyp.get("sample_with_replacement", False)) and self.world.size == 1
-        order = self.rank_rows(epoch_order(self.cfg.seed, step, n, replace)
-                               if self.shuffle else np.arange(n))
-        if self.images is not None:
-            if self.semi:
-                order = order + (step % self.bundle.baked.rounds) * n
-            idx = torch.from_numpy(order).to(self.device)
-            images = self.images.index_select(0, idx)
-            labels = self.labels.index_select(0, idx)
-            return images.view(rows, self.sub, *images.shape[1:]), labels.view(rows, self.sub)
-        source = self.bundle.baked.round(step) if self.semi else self.bundle.train
-        labels = torch.from_numpy(source.labels[order]).long().to(self.device).view(rows, self.sub)
-        if self.streamed:
-            return HostRows(source.images, order, rows, self.sub,
-                            self.seg_blocks * self.chunks), labels
-        images = upload_rows(source.images, order, self.device, len(order))
-        return images.view(rows, self.sub, *images.shape[1:]), labels
+        with span(STAGE):
+            if not (self.shuffle or self.semi) and self.images is not None:
+                return self.images, self.labels
+            hyp = self.cfg.hyp
+            rows = self.num_blocks * self.chunks
+            n = self.round_size
+            replace = bool(hyp.get("sample_with_replacement", False)) and self.world.size == 1
+            order = self.rank_rows(epoch_order(self.cfg.seed, step, n, replace)
+                                   if self.shuffle else np.arange(n))
+            if self.images is not None:
+                if self.semi:
+                    order = order + (step % self.bundle.baked.rounds) * n
+                idx = torch.from_numpy(order).to(self.device)
+                images = self.images.index_select(0, idx)
+                labels = self.labels.index_select(0, idx)
+                return images.view(rows, self.sub, *images.shape[1:]), labels.view(rows, self.sub)
+            source = self.bundle.baked.round(step) if self.semi else self.bundle.train
+            labels = torch.from_numpy(source.labels[order]).long().to(self.device).view(
+                rows, self.sub)
+            if self.streamed:
+                return HostRows(source.images, order, rows, self.sub,
+                                self.seg_blocks * self.chunks), labels
+            images = upload_rows(source.images, order, self.device, len(order))
+            return images.view(rows, self.sub, *images.shape[1:]), labels
 
     def segments(self, images, labels):
         """``(first row, images, labels)`` of each segment of the staged
@@ -521,22 +526,24 @@ class Trainer:
         sq_norms, clipped = [], []
         for start, seg_images, seg_labels in self.segments(images, labels):
             for row in range(len(seg_images)):
-                chunk, lbls = seg_images[row], seg_labels[row]
-                if self.bundle.augmentations_active:
-                    chunk = self.bundle.augment(chunk, gen)
-                x = self._normalize(chunk)
-                self.draw_seed = self.layer_seed(gen, start + row)
-                logits = self.forward(model, x)
-                loss = self.criterion(logits, lbls)
-                grads = torch.autograd.grad(loss, self.params)
-                sq_norms.append(tree_sqnorm(grads))
-                if self.reg_fn is not None:
-                    grads = self.reg_fn(grads, self.params, x, lbls, pre_grads, lr)
-                was_clipped = self._add_to_mean(avg, grads, start + row + 1)
-                if was_clipped is not None:
-                    clipped.append(was_clipped.to(torch.float32))
-                sloss = sloss + loss.detach() / self.chunks
-                spreds = spreds + (logits.argmax(-1) == lbls).to(self.stat_dtype).sum()
+                with span(CHUNK):
+                    chunk, lbls = seg_images[row], seg_labels[row]
+                    if self.bundle.augmentations_active:
+                        chunk = self.bundle.augment(chunk, gen)
+                    x = self._normalize(chunk)
+                    self.draw_seed = self.layer_seed(gen, start + row)
+                    logits = self.forward(model, x)
+                    loss = self.criterion(logits, lbls)
+                    grads = torch.autograd.grad(loss, self.params)
+                    sq_norms.append(tree_sqnorm(grads))
+                    if self.reg_fn is not None:
+                        with span(REGULARIZER):
+                            grads = self.reg_fn(grads, self.params, x, lbls, pre_grads, lr)
+                    was_clipped = self._add_to_mean(avg, grads, start + row + 1)
+                    if was_clipped is not None:
+                        clipped.append(was_clipped.to(torch.float32))
+                    sloss = sloss + loss.detach() / self.chunks
+                    spreds = spreds + (logits.argmax(-1) == lbls).to(self.stat_dtype).sum()
 
         sq_norms = torch.stack(sq_norms)
         full_loss, param_norm = self.full_loss(lr, sloss, sq_norms)
@@ -567,57 +574,59 @@ class Trainer:
         ``W``, and the metrics read from the sums as the JAX package's
         ``_metrics_from_package`` reads them, ``grad_norm`` included. Returns
         (avg, metrics, every rank's squared chunk norms, rank-major)."""
-        world, ranks = self.world, self.world.size
-        buffers = [b for b in model.buffers() if b.is_floating_point()]
-        scalars = torch.stack([t.to(self.stat_dtype) for t in
-                               (sloss, spreds, full_loss, sq_norms.mean(), clipped)])
-        slots = sq_norms.new_zeros((ranks, len(sq_norms)))
-        slots[world.rank] = sq_norms
-        summed = all_reduce_parts(world, [*avg, *buffers, scalars, slots])
-        avg, scalars, slots = summed[:len(avg)], summed[-2], summed[-1]
-        if world.group is not None:
-            if avg:
-                torch._foreach_div_(avg, ranks)
-            with torch.no_grad():
-                for b, total in zip(buffers, summed[len(avg):-2]):
-                    b.copy_(total / ranks)
-        metrics = {
-            "train_loss": scalars[0] / self.num_blocks / ranks,
-            "train_acc": scalars[1] / (self.num_blocks * self.chunks * self.sub * ranks),
-            "param_norm": param_norm,
-            "grad_norm": torch.sqrt(scalars[3]) / ranks,
-            "full_loss": scalars[2] / ranks,
-            "clipped_batches": scalars[4],
-        }
-        return avg, metrics, slots.flatten()
+        with span(REDUCE_PASS):
+            world, ranks = self.world, self.world.size
+            buffers = [b for b in model.buffers() if b.is_floating_point()]
+            scalars = torch.stack([t.to(self.stat_dtype) for t in
+                                   (sloss, spreds, full_loss, sq_norms.mean(), clipped)])
+            slots = sq_norms.new_zeros((ranks, len(sq_norms)))
+            slots[world.rank] = sq_norms
+            summed = all_reduce_parts(world, [*avg, *buffers, scalars, slots])
+            avg, scalars, slots = summed[:len(avg)], summed[-2], summed[-1]
+            if world.group is not None:
+                if avg:
+                    torch._foreach_div_(avg, ranks)
+                with torch.no_grad():
+                    for b, total in zip(buffers, summed[len(avg):-2]):
+                        b.copy_(total / ranks)
+            metrics = {
+                "train_loss": scalars[0] / self.num_blocks / ranks,
+                "train_acc": scalars[1] / (self.num_blocks * self.chunks * self.sub * ranks),
+                "param_norm": param_norm,
+                "grad_norm": torch.sqrt(scalars[3]) / ranks,
+                "full_loss": scalars[2] / ranks,
+                "clipped_batches": scalars[4],
+            }
+            return avg, metrics, slots.flatten()
 
     def modify_gradient(self, grads, gen, metrics):
         """Norm bias, full-gradient clip and gradient noise, drawn from
         ``gen``, a generator that every rank seeds alike."""
-        hyp = self.cfg.hyp
-        params = [p.detach() for p in self.params]
-        if hyp.norm_bias.strength > 0.0:
-            pn = tree_sqnorm(params)
-            if hyp.norm_bias.norm_type == 1:
-                sign = torch.sign(pn - hyp.norm_bias.bias ** 2)
-                grads = [g + hyp.norm_bias.strength * sign for g in grads]
-            else:
-                factor = 2 * (pn - hyp.norm_bias.bias ** 2)
-                grads = [g + hyp.norm_bias.strength * factor * p for g, p in zip(grads, params)]
-        if hyp.grad_clip is not None:
-            grads, was_clipped, pre_norm = tree_clip_by_norm(grads, hyp.grad_clip,
-                                                             hyp.grad_clip_norm)
-            metrics["preclip_gradnorm"] = pre_norm
-            metrics["clipped_step"] = was_clipped.to(torch.float32)
-        if hyp.grad_noise.additive is not None:
-            grads = [g + hyp.grad_noise.additive
-                     * torch.randn(g.shape, generator=gen, dtype=g.dtype, device=g.device)
-                     for g in grads]
-        if hyp.grad_noise.multiplicative is not None:
-            grads = [g * (1 + hyp.grad_noise.multiplicative
-                          * torch.randn(g.shape, generator=gen, dtype=g.dtype, device=g.device))
-                     for g in grads]
-        return grads, metrics
+        with span(MODIFY_GRADIENT):
+            hyp = self.cfg.hyp
+            params = [p.detach() for p in self.params]
+            if hyp.norm_bias.strength > 0.0:
+                pn = tree_sqnorm(params)
+                if hyp.norm_bias.norm_type == 1:
+                    sign = torch.sign(pn - hyp.norm_bias.bias ** 2)
+                    grads = [g + hyp.norm_bias.strength * sign for g in grads]
+                else:
+                    factor = 2 * (pn - hyp.norm_bias.bias ** 2)
+                    grads = [g + hyp.norm_bias.strength * factor * p for g, p in zip(grads, params)]
+            if hyp.grad_clip is not None:
+                grads, was_clipped, pre_norm = tree_clip_by_norm(grads, hyp.grad_clip,
+                                                                 hyp.grad_clip_norm)
+                metrics["preclip_gradnorm"] = pre_norm
+                metrics["clipped_step"] = was_clipped.to(torch.float32)
+            if hyp.grad_noise.additive is not None:
+                grads = [g + hyp.grad_noise.additive
+                         * torch.randn(g.shape, generator=gen, dtype=g.dtype, device=g.device)
+                         for g in grads]
+            if hyp.grad_noise.multiplicative is not None:
+                grads = [g * (1 + hyp.grad_noise.multiplicative
+                              * torch.randn(g.shape, generator=gen, dtype=g.dtype, device=g.device))
+                         for g in grads]
+            return grads, metrics
 
     def gradient_eval(self, state: TrainState, images, labels):
         """The modified full-batch gradient at the model's params, from the
@@ -665,8 +674,9 @@ class Trainer:
         returns metrics as device scalars plus the per-chunk gradient norms."""
         lr = self.schedule(state.step)
         grads, metrics, sq_norms = self.gradient_eval(state, images, labels)
-        self.sgd_update(state.optimizer, grads, lr)
-        self.ema_update(state)
+        with span(UPDATE):
+            self.sgd_update(state.optimizer, grads, lr)
+            self.ema_update(state)
         state.step += 1
         metrics["lr"] = lr
         metrics["grad_norms_per_chunk"] = torch.sqrt(sq_norms)
@@ -906,17 +916,18 @@ class ClosureEvals:
 
 def _to_host(metrics: dict) -> dict:
     """One device-to-host transfer for every metric of a step."""
-    tensors = [v.reshape(-1).to(torch.float64) for v in metrics.values()
-               if isinstance(v, torch.Tensor)]
-    host = iter(torch.cat(tensors).tolist() if tensors else [])
-    out = {}
-    for k, v in metrics.items():
-        if isinstance(v, torch.Tensor):
-            values = [next(host) for _ in range(v.numel())]
-            out[k] = values if k == "grad_norms_per_chunk" else values[0]
-        else:
-            out[k] = float(v)
-    return out
+    with span(TO_HOST):
+        tensors = [v.reshape(-1).to(torch.float64) for v in metrics.values()
+                   if isinstance(v, torch.Tensor)]
+        host = iter(torch.cat(tensors).tolist() if tensors else [])
+        out = {}
+        for k, v in metrics.items():
+            if isinstance(v, torch.Tensor):
+                values = [next(host) for _ in range(v.numel())]
+                out[k] = values if k == "grad_norms_per_chunk" else values[0]
+            else:
+                out[k] = float(v)
+        return out
 
 
 def configure_backends(cfg) -> None:

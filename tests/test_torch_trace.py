@@ -6,8 +6,9 @@ loop ends first).
 
 On the CPU a traced run of 2 ``hyp=fb1`` steps writes
 ``torch_trace/rank0.json`` in the working directory, a Chrome trace that
-holds the traced steps' convolutions: one step's with ``trace_steps=1``,
-both steps' with 2. Its params, running stats and stats are bitwise those
+holds the traced steps' convolutions and the program's ``fbt.chunk``
+spans (4 chunks a step): one step's with ``trace_steps=1``, both steps'
+with 2. Its params, running stats and stats are bitwise those
 of the untraced run (which ``tests/test_torch_training.py`` holds against
 the JAX ``train()``). A dryrun stops the loop before ``trace_steps``, and
 the trace is written all the same; so through the CLI.
@@ -24,6 +25,7 @@ import torch
 from fullbatchtraining_tpu_torch.config import load_config
 from fullbatchtraining_tpu_torch.data import construct_databundle
 from fullbatchtraining_tpu_torch.models import construct_model
+from fullbatchtraining_tpu_torch.tracing import CHUNK
 from fullbatchtraining_tpu_torch.training import train
 
 from test_torch_training_stochastic import one_thread  # noqa: F401  (autouse)
@@ -33,6 +35,7 @@ BASE = ["model=resnet18", "model.width=4", "hyp=fb1", "data.size=32",
         "data.path=/tmp/__torch_nodata__", "data.batch_size=16", "hyp.sub_batch=8",
         "hyp.steps=2", "hyp.warmup=0", "impl.validate_every_nth_step=1", "seed=0"]
 TRACE = "torch_trace/rank0.json"
+CHUNKS = 4   # 2 blocks of 16 in chunks of 8
 
 
 def _run(config_dir, extra):
@@ -43,16 +46,20 @@ def _run(config_dir, extra):
     return state.model.state_dict(), stats
 
 
-def _convolutions(file: pathlib.Path) -> int:
+def _count(file: pathlib.Path, name: str) -> int:
     events = json.loads(file.read_text())["traceEvents"]
-    return sum(e.get("name") == "aten::conv2d" for e in events)
+    return sum(e.get("name") == name for e in events)
+
+
+def _convolutions(file: pathlib.Path) -> int:
+    return _count(file, "aten::conv2d")
 
 
 def test_trace_covers_its_steps_and_changes_nothing(config_dir, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     ref, ref_stats = _run(config_dir, [])
     assert not (tmp_path / "torch_trace").exists()
-    counts = {}
+    counts, chunks = {}, {}
     for steps in (1, 2):
         run = tmp_path / str(steps)
         run.mkdir()
@@ -62,7 +69,9 @@ def test_trace_covers_its_steps_and_changes_nothing(config_dir, tmp_path, monkey
         assert {k: v for k, v in stats.items() if k != "train_time"} == {
             k: v for k, v in ref_stats.items() if k != "train_time"}
         counts[steps] = _convolutions(run / TRACE)
+        chunks[steps] = _count(run / TRACE, CHUNK)
     assert counts[1] > 0 and counts[2] == 2 * counts[1], counts
+    assert chunks == {1: CHUNKS, 2: 2 * CHUNKS}
 
 
 @pytest.mark.parametrize("how", ["train", "cli"])
