@@ -8,7 +8,8 @@ Phases, in order; any failure exits non-zero before the result lines:
 1. The card (``nvidia-smi`` name and power limit), versions, and the build of
    the port's CUDA kernels from ``fullbatchtraining_tpu_torch/ops/csrc``
    (``nvcc -Xptxas -v``: registers and spills per kernel; every kernel of
-   ``BN_KERNEL_NAMES`` must be in the report, and none may spill).
+   ``BN_KERNEL_NAMES`` and ``POOL_KERNEL_NAMES`` must be in the report of its
+   library, and none may spill).
 2. Every kernel against its plain PyTorch version at ResNet-18/CIFAR's BN
    shapes for a chunk of 2048 images (the bench shape), in float32 and
    bfloat16 (float16 in phase 16), plus BNTrain forward+backward; times of
@@ -24,7 +25,12 @@ Phases, in order; any failure exits non-zero before the result lines:
    ``dx``'s two parts rounded apart (``split``); ``bwd_apply`` with its one
    rounding is checked too. In bfloat16 (and float16) the split instance
    may differ from its plain version in at most ``SPLIT_OFF_TOL`` of its
-   entries, which the one rounding exceeds.
+   entries, which the one rounding exceeds. Then the average pool's two
+   kernels (``ops/pool.py``) at ResNet-18's three downsample inputs for the
+   same chunk, in float32 and bfloat16: bitwise ``F.avg_pool2d`` and ATen's
+   ``avg_pool2d_backward``, at 16 bytes a thread, with the times of kernel,
+   plain version (``AvgPool`` under ``plain_versions()``), ATen's call and
+   the bound (input and output once over 3.35 TB/s).
 3. One float32 full-batch step of the main path (ResNet-18, 8192 images in
    chunks of 512) with the kernels, and the same step under
    ``ops.bn.plain_versions()``: loss, gradient norm, parameters and running
@@ -33,7 +39,9 @@ Phases, in order; any failure exits non-zero before the result lines:
    ``python -m fullbatchtraining_tpu_torch`` calls: ``model=resnet18
    data=CIFAR10 hyp=fb1``, 3 steps over 50,000 synthetic images in chunks of
    2048 under bf16 autocast. Launch counts must show every kernel on the path,
-   and every launch at 16 bytes a thread.
+   and every launch at 16 bytes a thread; the pool's, counted from 0 just
+   before the run, exactly 3 a forward and 3 a backward of a chunk (and 3 a
+   forward of an evaluation block), none through ``F.avg_pool2d``.
 5. One more full-width step under ``torch.profiler``, after a warm-up step:
    device time by kernel class, and the device's busy share: that step's
    device time over the wall time of the next step, run without the
@@ -206,7 +214,9 @@ Phases, in order; any failure exits non-zero before the result lines:
 
 The last lines are the card line, a JSON object of per-kernel numbers (their
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` sum the 20 BN layers of
-one bf16 chunk of 2048 images, ``stem_224`` times the 224 px first-stage
+one bf16 chunk of 2048 images, or the pool's three inputs of that chunk for
+``avg_pool_fwd`` and ``avg_pool_bwd``, whose ``launches`` and
+``plain_calls`` count phase 4, ``stem_224`` times the 224 px first-stage
 layer alone; ``launches`` counts phase 4, ``launches_gradreg`` phase 7,
 ``launches_sgd`` phase 8c, ``launches_fb_shuffle`` phase 8d,
 ``launches_baked`` phase 9b, ``launches_dist`` phase 10a,
@@ -241,6 +251,10 @@ STAGES = [(1024, 64), (256, 128), (64, 256), (16, 512)]  # (H*W, C) per ResNet-1
 LAYERS_PER_STAGE = 5
 BN_LAYERS = LAYERS_PER_STAGE * len(STAGES)   # 20 BatchNorms in ResNet-18
 SOURCE = "fullbatchtraining_tpu_torch/ops/csrc/bn_kernels.cu"
+POOL_SOURCE = "fullbatchtraining_tpu_torch/ops/csrc/pool_kernels.cu"
+# (side, C) of the inputs ResNet-18's downsample-C shortcuts pool at window 2
+POOL_INPUTS = [(32, 64), (16, 128), (8, 256)]
+R18_POOLS = len(POOL_INPUTS)
 REPLACES = {"stats": "fullbatchtraining_tpu/ops/pallas_bn.py:88",
             "apply": "fullbatchtraining_tpu/ops/pallas_bn.py:97",
             "bwd_reduce": "fullbatchtraining_tpu/ops/pallas_bn.py:102",
@@ -476,6 +490,61 @@ def library_calls(torch, F, x, dy, ab, hw, c, chunk=CHUNK):
     }
 
 
+def phase_pool_kernels(torch, chunk=CHUNK, dtypes=("float32", "bfloat16")):
+    """The pool's ``fwd`` and ``bwd`` kernels at ResNet-18's downsample
+    inputs (``POOL_INPUTS``) for a chunk of ``chunk`` images: bitwise
+    ATen's (``F.avg_pool2d``, ``avg_pool2d_backward``), 16 bytes a thread,
+    and their times."""
+    import torch.nn.functional as F
+
+    from fullbatchtraining_tpu_torch.ops import _build, pool
+
+    bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    rows = []
+    dev = torch.device(DEVICE)
+    for dtype_name in dtypes:
+        dtype = getattr(torch, dtype_name)
+        for side, c in POOL_INPUTS:
+            g = torch.Generator(device=dev).manual_seed(side + c)
+            x = (torch.randn((chunk, c, side, side), generator=g, device=dev) * 1.5
+                 + 0.3).to(dtype).contiguous(memory_format=torch.channels_last)
+            dy = torch.randn((chunk, c, side // 2, side // 2), generator=g, device=dev).to(
+                dtype).contiguous(memory_format=torch.channels_last)
+            calls = {"fwd": (lambda: pool.pool_forward(x, 2), lambda: F.avg_pool2d(x, 2, 2)),
+                     "bwd": (lambda: pool.pool_backward(dy, 2),
+                             lambda: torch.ops.aten.avg_pool2d_backward(
+                                 dy, x, [2, 2], [2, 2], [0, 0], False, True, None))}
+            for name, (call, library) in calls.items():
+                before = dict(pool.vector_launches)
+                out, ref = call(), library()
+                torch.cuda.synchronize()
+                width = 16 if pool.vector_launches[name] > before[name] else x.element_size()
+                view = bits[x.element_size()]
+                off = (out.contiguous().view(view) != ref.contiguous().view(view)).sum().item()
+                with _build.plain_versions():
+                    plain_ms = cuda_ms(torch, call)
+                row = {"kernel": f"avg_pool_{name}", "dtype": dtype_name, "images": chunk,
+                       "c": c, "side": side, "access_bytes": width, "bits_off": off,
+                       "ms": cuda_ms(torch, call), "host_ms": host_ms(torch, call),
+                       "plain_ms": plain_ms, "library_ms": cuda_ms(torch, library),
+                       "bound_ms": 1e3 * (x.numel() + dy.numel()) * x.element_size()
+                       / HBM_BYTES_PER_S}
+                rows.append(row)
+                log(f"  avg_pool_{name} {dtype_name:8s} {chunk}x{c}x{side}x{side} "
+                    f"{width:2d} B/access, {off} entries off ATen's bits; kernel "
+                    f"{row['ms']:.4f} ms (host {row['host_ms']:.4f})  plain {plain_ms:.4f} ms  "
+                    f"ATen {row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms")
+                check(off == 0, f"avg_pool_{name} {dtype_name} C={c} is not ATen's bitwise")
+                check(out.is_contiguous(memory_format=torch.channels_last),
+                      f"avg_pool_{name} {dtype_name} C={c} left channels-last")
+                check(width == 16, f"avg_pool_{name} {dtype_name} C={c} took {width}-byte "
+                      "accesses")
+                del out, ref
+            del x, dy, calls
+            torch.cuda.empty_cache()
+    return rows
+
+
 def phase_bn_train(torch, bn, F, x, dy, dtype_name, hw, c, chunk=CHUNK):
     """BNTrain forward+backward on the kernels against the same Function on
     the plain versions; F.batch_norm(training=True) forward+backward timed
@@ -583,12 +652,16 @@ def kernels_against_plain_step(torch, bn, hyp="fb1", extra=(), control=False):
     chunks of the step."""
     from fullbatchtraining_tpu_torch.data import epoch_layout
 
+    from fullbatchtraining_tpu_torch.ops import pool
+
     bn.reset_counts()
     cfg, bundle, initial, kstate, kstats = run_main_path(torch, FP32_STEP + list(extra), hyp)
     counts, doubles = dict(bn.launches), bn.double_backward_calls
+    pooled = dict(pool.launches)
     with bn.plain_versions():
         _, _, _, pstate, pstats = run_main_path(torch, FP32_STEP + list(extra), hyp)
-    check(bn.launches == counts, "plain_versions() still launched kernels")
+    check(bn.launches == counts and pool.launches == pooled,
+          "plain_versions() still launched kernels")
     size = (bundle.baked.meta["size"] if cfg.hyp.train_semi_stochastic and bundle.baked
             else bundle.size)  # a semi-stochastic step reads one round
     blocks, chunks, _ = epoch_layout(size, bundle.batch_size, cfg.hyp.sub_batch)
@@ -675,12 +748,17 @@ def phase_full_width(torch, bn, hyp="fb1", passes=1):
     so ``stats``, ``bwd_reduce`` and ``bwd_apply`` launch ``passes`` times a
     BN layer a chunk."""
     from fullbatchtraining_tpu_torch.data import epoch_layout
+    from fullbatchtraining_tpu_torch.ops import pool
 
     bn.reset_counts()
+    pool.reset_counts()
     t0 = time.time()
     cfg, bundle, _, _, stats = run_main_path(torch, FULL_WIDTH, hyp)
     wall = time.time() - t0
     counts, wide, copies = dict(bn.launches), dict(bn.vector_launches), bn.layout_copies
+    pooled = {"launches": dict(pool.launches), "vector_launches": dict(pool.vector_launches),
+              "plain_calls": pool.plain_calls, "identity_calls": pool.identity_calls,
+              "layout_copies": pool.layout_copies}
     blocks, chunks, sub = epoch_layout(bundle.size, bundle.batch_size, cfg.hyp.sub_batch)
     images = blocks * chunks * sub
     evals = len(stats["valid_loss"])
@@ -694,7 +772,7 @@ def phase_full_width(torch, bn, hyp="fb1", passes=1):
         "train_loss": stats["train_loss"], "train_acc": stats["train_acc"],
         "valid_loss": stats["valid_loss"], "valid_acc": stats["valid_acc"],
         "launches": counts, "vector_launches": wide, "layout_copies": copies, "evals": evals,
-        "chunks_per_step": blocks * chunks, "wall_s": wall,
+        "chunks_per_step": blocks * chunks, "wall_s": wall, "pool": pooled,
     }
     for i, t in enumerate(stats["train_time"]):
         log(f"  step {i + 1}: {t:.3f} s, {images / t:.0f} images/s, "
@@ -702,6 +780,7 @@ def phase_full_width(torch, bn, hyp="fb1", passes=1):
     log(f"  valid loss {stats['valid_loss']}, valid acc {stats['valid_acc']}")
     log(f"  peak memory {result['peak_memory_gib']:.2f} GiB; launches {counts}; "
         f"of them at 16 bytes a thread {wide}; layout_copies {copies}; evaluations {evals}")
+    log(f"  pool: {pooled}")
     check(steps == 3 and evals == 2, f"{steps} steps and {evals} evaluations, expected 3 and 2")
     for name in ("stats", "bwd_reduce", "bwd_apply"):
         check(counts[name] == per_step * steps,
@@ -711,6 +790,13 @@ def phase_full_width(torch, bn, hyp="fb1", passes=1):
           f"{BN_LAYERS * eval_blocks} per evaluation")
     for name, n in wide.items():
         check(n == counts[name], f"{name}: {n} of {counts[name]} launches at 16 bytes a thread")
+    # a pool a downsample shortcut: forwards as BN's apply, backwards as its bwd_apply
+    expect = {"fwd": R18_POOLS * counts["apply"] // BN_LAYERS,
+              "bwd": R18_POOLS * counts["bwd_apply"] // BN_LAYERS}
+    check(pooled["launches"] == pooled["vector_launches"] == expect
+          and (pooled["plain_calls"], pooled["identity_calls"], pooled["layout_copies"])
+          == (0, 0, 0), f"pool: {pooled}, expected {expect} launches, all at 16 bytes, and "
+          "no F.avg_pool2d, identity or copy")
     check(all(map(math.isfinite, stats["train_loss"] + stats["valid_loss"])),
           "non-finite loss")
     return result
@@ -718,6 +804,7 @@ def phase_full_width(torch, bn, hyp="fb1", passes=1):
 
 BN_KERNEL_NAMES = ("stats_partial", "bwd_reduce_partial", "finalize_partials", "apply_kernel",
                    "bwd_apply_kernel")
+POOL_KERNEL_NAMES = ("avg_pool_nhwc_fwd", "avg_pool_nhwc_bwd")
 CONV_NAMES = ("conv", "gemm", "sm90", "cutlass", "xmma", "cudnn", "implicit", "winograd")
 
 
@@ -3367,20 +3454,25 @@ def main() -> int:
     log(f"[1] card: {card}")
     log(f"    python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
-    t0 = time.time()
-    path, compiler = _build.build("bn_kernels")
-    log(f"    built {path.relative_to(ROOT)} in {time.time() - t0:.1f} s")
-    for line in compiler.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log(f"    {line.strip()}")
-    reported = spills(compiler)
-    missing = [k for k in BN_KERNEL_NAMES if not any(k in name for name in reported)]
-    spilled = {k: v for k, v in reported.items() if v != (0, 0)}
-    check(compiler and not missing, f"no -Xptxas -v report for {missing or 'any kernel'}")
-    check(not spilled, f"kernels spill (store, load bytes): {spilled}")
+    compilers = {}
+    for library, names in (("bn_kernels", BN_KERNEL_NAMES), ("pool_kernels", POOL_KERNEL_NAMES)):
+        t0 = time.time()
+        path, compiler = compilers[library] = _build.build(library)
+        log(f"    built {path.relative_to(ROOT)} in {time.time() - t0:.1f} s")
+        for line in compiler.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"    {line.strip()}")
+        reported = spills(compiler)
+        missing = [k for k in names if not any(k in name for name in reported)]
+        spilled = {k: v for k, v in reported.items() if v != (0, 0)}
+        check(compiler and not missing,
+              f"{library}: no -Xptxas -v report for {missing or 'any kernel'}")
+        check(not spilled, f"{library}: kernels spill (store, load bytes): {spilled}")
+    compiler = compilers["bn_kernels"][1]
 
     phase("[2] kernels against their plain versions (chunk of 2048 images)")
     rows = phase_kernels(torch, bn)
+    pool_rows = phase_pool_kernels(torch)
     phase("[3] float32 full-batch step: kernels against plain versions")
     phase_fp32_step(torch, bn)
     phase("[4] main path at full width: ResNet-18 hyp=fb1, 3 steps, bf16")
@@ -3542,11 +3634,28 @@ def main() -> int:
             f"library call, {k['ms'] / k['bound_ms']:.2f}x its bound; f16 chunk: "
             f"{k['ms_f16']:.4f} ms, {k['ms_f16'] / k['library_ms_f16']:.2f}x its library call, "
             f"{k['ms_f16'] / k['bound_ms_f16']:.2f}x its bound")
+    for name in ("fwd", "bwd"):
+        mine = [r for r in pool_rows if r["kernel"] == f"avg_pool_{name}"
+                and r["dtype"] == "bfloat16"]
+        kernels.append({
+            "name": f"avg_pool_{name}", "route": "cuda", "source": POOL_SOURCE,
+            "replaces": f"ATen avg_pool2d{'_backward' if name == 'bwd' else ''} (NHWC)",
+            "launches": full["pool"]["launches"][name],
+            "plain_calls": full["pool"]["plain_calls"],
+            "bits_off": sum(r["bits_off"] for r in pool_rows if r["kernel"] == f"avg_pool_{name}"),
+            **{key: sum(r[key] for r in mine)
+               for key in ("ms", "plain_ms", "bound_ms", "library_ms")}, "bound_by": "bytes"})
+        k = kernels[-1]
+        log(f"  avg_pool_{name} bf16 chunk: {k['ms']:.4f} ms, {k['ms'] / k['library_ms']:.2f}x "
+            f"ATen's, {k['ms'] / k['bound_ms']:.2f}x its bound; launches {k['launches']}, "
+            f"plain calls {k['plain_calls']}")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-             "compiler": compiler, "kernel_rows": rows, "full_width": full, "profile": profile,
+             "compiler": compiler, "pool_compiler": compilers["pool_kernels"][1],
+             "kernel_rows": rows, "pool_kernel_rows": pool_rows, "full_width": full,
+             "profile": profile,
              "double_backward": double_backward, "gradreg": gradreg,
              "small_kernel_rows": small_rows, "sgd_epoch": sgd_epoch, "sgd": sgd,
              "fb_practice": fb_practice, "resume": resume, "bake": bake,

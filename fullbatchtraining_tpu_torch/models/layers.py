@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import bn as bn_ops
+from ..ops import pool
 
 
 def _fans(weight: torch.Tensor) -> tuple[int, int]:
@@ -452,7 +453,19 @@ def max_pool(x: torch.Tensor, window: int, stride: int, padding: int = 0) -> tor
 def avg_pool(x: torch.Tensor, window: int, stride: int, padding: int = 0,
              count_include_pad: bool = True) -> torch.Tensor:
     """torch ``nn.AvgPool2d``: with ``count_include_pad=False`` each window
-    divides by the real (unpadded) elements it covers."""
+    divides by the real (unpadded) elements it covers. ``pool.route`` picks
+    the way from the input: window == stride == 1 returns ``x`` itself;
+    disjoint windows that tile ``H`` and ``W`` take the pooling kernels
+    (``ops.pool.AvgPool``); anything else ``F.avg_pool2d``. All three give
+    ``F.avg_pool2d``'s values bitwise, but that the identity keeps a -0
+    which ATen's sum, starting from +0, turns into +0."""
+    how = pool.route(x.shape, x.dtype, window, stride, padding)
+    if how == "identity":
+        pool.identity_calls += 1
+        return x
+    if how == "kernel":
+        return pool.AvgPool.apply(x, window)
+    pool.plain_calls += 1
     return F.avg_pool2d(x, window, stride, padding, count_include_pad=count_include_pad)
 
 

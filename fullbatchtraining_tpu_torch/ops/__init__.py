@@ -1,5 +1,5 @@
 """Hand-written CUDA kernels of the port (built from ``csrc/`` at first use)."""
 
-from . import bn
+from . import bn, pool
 
-__all__ = ["bn"]
+__all__ = ["bn", "pool"]

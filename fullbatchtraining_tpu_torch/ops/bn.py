@@ -23,9 +23,9 @@ absolute 6e-8, the one rounding leaves more entries at exactly zero.
 
 Each wrapper runs its kernel for a CUDA tensor and its plain PyTorch version
 for a CPU tensor; nothing falls back from one to the other. Inside
-:func:`plain_versions` the plain versions run on CUDA too (tests and the
-chip smoke compare the two that way). Each kernel launch adds one to
-``launches[name]``.
+:func:`plain_versions` (``_build``'s, which ``pool.py`` reads too) the
+plain versions run on CUDA too (tests and the chip smoke compare the two
+that way). Each kernel launch adds one to ``launches[name]``.
 
 Each kernel moves 16 bytes a thread per access where it can;
 :func:`launch_plan` picks the width from ``C``, the dtype and the tensors'
@@ -46,7 +46,6 @@ backward.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 
@@ -54,6 +53,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import _build
+from ._build import plain_versions  # noqa: F401  (re-exported)
 
 launches = {"stats": 0, "apply": 0, "bwd_reduce": 0, "bwd_apply": 0}
 # launches that took the 16-byte width
@@ -63,9 +63,6 @@ layout_copies = 0
 # double backwards of BNTrain (BNTrainBackward.backward, plain PyTorch)
 double_backward_calls = 0
 
-_force_plain = False
-_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16",
-           torch.float64: "f64"}
 # G: one wave of the blocks per SM that the kernels' __launch_bounds__ keep
 # resident (csrc MIN_BLOCKS)
 _BLOCKS_PER_SM = 3
@@ -81,22 +78,10 @@ def reset_counts() -> None:
     double_backward_calls = 0
 
 
-@contextlib.contextmanager
-def plain_versions():
-    """Run the plain PyTorch versions on CUDA tensors as well (for tests and
-    the chip smoke's comparisons; the main path never enters this)."""
-    global _force_plain
-    previous, _force_plain = _force_plain, True
-    try:
-        yield
-    finally:
-        _force_plain = previous
-
-
 def stat_dtype(dtype: torch.dtype) -> torch.dtype:
     """promote(dtype, float32); the kernels take float32, bfloat16, float16
     and float64."""
-    if dtype not in _SUFFIX:
+    if dtype not in _build.SUFFIX:
         raise TypeError(f"BatchNorm kernels take float32, bfloat16, float16 or float64, "
                         f"not {dtype}")
     return torch.promote_types(dtype, torch.float32)
@@ -139,18 +124,13 @@ def bwd_apply_plain(dy: torch.Tensor, x: torch.Tensor, coef: torch.Tensor,
 def _library() -> ctypes.CDLL:
     lib = _build.load("bn_kernels")
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    for suffix in _SUFFIX.values():
+    for suffix in _build.SUFFIX.values():
         for name, nptr in (("stats", 3), ("apply", 3), ("bwd_reduce", 4), ("bwd_apply", 4),
                            ("bwd_apply_split", 4)):
             fn = getattr(lib, f"fbt_bn_{name}_{suffix}")
             fn.argtypes = [ptr] * nptr + [i64, i32, i32, i32, ptr]
             fn.restype = ctypes.c_int
     return lib
-
-
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def launch_plan(sm_count: int, m: int, c: int, dtype: torch.dtype,
@@ -175,7 +155,7 @@ def launch_plan(sm_count: int, m: int, c: int, dtype: torch.dtype,
 
 def _use_kernel(*tensors: torch.Tensor) -> bool:
     device = tensors[0].device
-    if device.type in ("cpu", "meta") or (_force_plain and device.type == "cuda"):
+    if device.type in ("cpu", "meta") or (_build.force_plain and device.type == "cuda"):
         return False   # meta: shapes only (the activation estimate's probe)
     if device.type != "cuda":
         raise RuntimeError(f"BatchNorm kernels run on CUDA or CPU tensors, not {device}")
@@ -206,7 +186,7 @@ def _coefficients(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 
 def _plan(x: torch.Tensor, addresses: list[int]) -> tuple[int, int]:
     m, c = x.shape
-    return launch_plan(_sm_count(x.device.index), m, c, x.dtype, *addresses)
+    return launch_plan(_build.sm_count(x.device.index), m, c, x.dtype, *addresses)
 
 
 def _launched(name: str, vec: int) -> None:
@@ -227,8 +207,8 @@ def _reduce(name: str, plain, *inputs: torch.Tensor) -> torch.Tensor:
     ptrs = [t.data_ptr() for t in inputs]
     g, vec = _plan(x, ptrs)
     ws = torch.empty((g, 2, c), dtype=acc, device=x.device)
-    fn = getattr(_library(), f"fbt_bn_{name}_{_SUFFIX[x.dtype]}")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    fn = getattr(_library(), f"fbt_bn_{name}_{_build.SUFFIX[x.dtype]}")
+    stream = _build.stream(x.device.index)
     _check(fn(*ptrs, ws.data_ptr(), out.data_ptr(), m, c, g, vec, stream), name)
     _launched(name, vec)
     return out
@@ -247,8 +227,8 @@ def _elementwise(name: str, plain, coef: torch.Tensor, *inputs: torch.Tensor,
         return out
     ptrs = [t.data_ptr() for t in (*inputs, out)]
     g, vec = _plan(x, ptrs)
-    fn = getattr(_library(), f"fbt_bn_{entry or name}_{_SUFFIX[x.dtype]}")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    fn = getattr(_library(), f"fbt_bn_{entry or name}_{_build.SUFFIX[x.dtype]}")
+    stream = _build.stream(x.device.index)
     _check(fn(*ptrs[:-1], coef.data_ptr(), ptrs[-1], m, c, g, vec, stream), name)
     _launched(name, vec)
     return out
