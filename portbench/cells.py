@@ -1,10 +1,12 @@
 """Find a cell's parts by name: its entry in ``BENCHMARK.json``, its
 configuration (``configs/<config>.json``), its traffic (``traffic/<traffic>.json``),
-the limits of its comparison (``limits/<workload>.json``) and the reader of
-each per-layer metric (``metrics/<metric>.py``, a function ``read(ctx)``).
+the limits of its comparison (``limits/<workload>.json``), the reference of
+its model family (``reference/<family>.py``, the configuration's ``model``
+less its trailing digits) and the reader of each per-layer metric
+(``metrics/<metric>.py``, a function ``read(ctx)``).
 
-A later cell, configuration or metric is a new file and a new entry; none
-of this code names one.
+A later cell, configuration, model family or metric is a new file and a
+new entry; none of this code names one.
 """
 
 from __future__ import annotations
@@ -16,6 +18,9 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
+# what every ``reference/<family>.py`` gives
+FAMILY = ("architecture", "layers", "parameter_shapes", "init_std", "initial_stats", "forward",
+          "tiny")
 
 
 @dataclasses.dataclass
@@ -54,10 +59,27 @@ def find(name: str, root: Path = ROOT) -> Cell:
     workload = workloads[name]
     configs = {c["name"]: c for c in bench["configs"]}
     config = load_json(root / configs[workload["config"]]["file"])
+    family(config)
     traffic = load_json(HERE / "traffic" / f"{workload['traffic']}.json")
     limits = load_json(HERE / "limits" / f"{name}.json")
     return Cell(workload, config, traffic, limits, reported(bench["end_to_end"], name),
                 reported(bench["per_layer"], name))
+
+
+def family(config: dict):
+    """The reference module of ``config``'s model family:
+    ``reference/<family>.py``, where ``<family>`` is its ``model`` less the
+    trailing digits (``resnet152``: ``resnet``)."""
+    name = str(config["model"]).rstrip("0123456789")
+    path = HERE / "reference" / f"{name}.py"
+    if not name.isidentifier() or not path.is_file():
+        raise FileNotFoundError(f"model {config['model']!r} has no reference: "
+                                f"no file {path.relative_to(ROOT)}")
+    module = importlib.import_module(f"{__package__}.reference.{name}")
+    missing = [f for f in FAMILY if not callable(getattr(module, f, None))]
+    if missing:
+        raise AttributeError(f"{path.relative_to(ROOT)} is no model family: it lacks {missing}")
+    return module
 
 
 def reader(metric: str):

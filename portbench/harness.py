@@ -8,7 +8,8 @@ same object then runs the window. The window runs whole steps until
 the time from the first step's start to the last step's end, which waits
 for the device. With ``trace`` the traced steps follow the window under
 ``torch.profiler`` (:func:`traced_steps`), and the per-layer metrics read
-both. The reference runs last, after the peak memory was read and the
+both, with the cell and its work (``ctx``: ``cell``, ``work``, ``window``,
+``trace``). The reference runs last, after the peak memory was read and the
 program's state freed. The result's ``setup_parts`` split ``setup_s`` at
 the process's age when the run began (imports and the look for a card),
 when the program was built and when its checked steps were done.
@@ -22,7 +23,7 @@ import time
 
 import torch
 
-from . import compare, inputs, trace
+from . import compare, inputs, spans, trace
 from .cells import reader
 from .program import Program
 from .work import step_work
@@ -54,7 +55,9 @@ def traced_steps(program, steps: int) -> dict | None:
     every host operation as well slows the host's issue by half or more,
     and the card would idle behind the profiler). Then host and device
     together, the regularizer's entry wrapped in a span of its own, reduced
-    by :func:`.trace.reduce` for the layers' device time and the breakdown."""
+    by :func:`.trace.reduce` for the layers' device time and the breakdown,
+    and by :func:`.spans.reduce` for the program's own spans
+    (``summary["spans"]``)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     cuda = program.device.type == "cuda"
@@ -81,10 +84,11 @@ def traced_steps(program, steps: int) -> dict | None:
                     program.step()
     finally:
         trainer.reg_fn = reg_fn
-    summary = trace.reduce(prof.profiler.kineto_results.events(),
-                           spans=(trace.REGULARIZER,) if reg_fn is not None else ())
+    events = prof.profiler.kineto_results.events()
+    summary = trace.reduce(events, spans=(trace.REGULARIZER,) if reg_fn is not None else ())
     if summary is not None:
-        summary.update(steps=steps, busy_s=busy, window_s=(end - start) / 1e9)
+        summary.update(steps=steps, busy_s=busy, window_s=(end - start) / 1e9,
+                       spans=spans.reduce(events))
     return summary
 
 
@@ -120,7 +124,7 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device, process_age)
     correct, checks = compare.judge(numbers, cell.limits)
 
     if traced:
-        ctx = {"work": work, "window": timed, "trace": summary}
+        ctx = {"cell": cell, "work": work, "window": timed, "trace": summary}
         metrics = {}
         for m in cell.per_layer:
             value = reader(m["name"])(ctx)

@@ -7,8 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from .reference import resnet
-from .work import plan_of
+from .cells import family
 
 _STREAMS = {"data": 0, "weights": 1}
 
@@ -37,14 +36,16 @@ def images_and_labels(config: dict, seed: int, device):
 
 def weights(config: dict, seed: int, device) -> dict:
     """``{name: float32 tensor}`` of every parameter, from one draw of
-    normals split into the leaves (:func:`.reference.resnet.init_std`)."""
-    shapes = resnet.parameter_shapes(plan_of(config))
+    normals split into the leaves in the model family's order, each scaled
+    by its family's ``init_std``."""
+    reference = family(config)
+    shapes = reference.parameter_shapes(reference.architecture(config))
     total = sum(torch.Size(shape).numel() for shape, _ in shapes.values())
     draws = torch.randn(total, generator=generator(seed, "weights", device), device=device)
     out, at = {}, 0
     for name, (shape, kind) in shapes.items():
         size = torch.Size(shape).numel()
-        mean, std = resnet.init_std(shape, kind)
+        mean, std = reference.init_std(shape, kind)
         out[name] = draws[at:at + size].view(shape) * std + mean
         at += size
     return out

@@ -31,6 +31,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .layers import BN_EPS, update_stats_
+
 PRECISIONS = ("float32", "tf32", "bf16", "bf16split", "fp8")
 _FP8 = {"e4m3": (torch.float8_e4m3fn, 448.0), "e5m2": (torch.float8_e5m2, 57344.0)}
 
@@ -128,8 +130,7 @@ class _SplitBatchNorm(torch.autograd.Function):
 
 
 def split_batch_norm(x, weight, bias, stats, name, update_stats: bool):
-    """:func:`.resnet.batch_norm` with :class:`_SplitBatchNorm`'s gradient."""
-    from .resnet import BN_EPS, update_stats_
+    """:func:`.layers.batch_norm` with :class:`_SplitBatchNorm`'s gradient."""
     with torch.no_grad():
         mean = x.mean(dim=(0, 2, 3))
         var = x.var(dim=(0, 2, 3), unbiased=False)
@@ -139,7 +140,7 @@ def split_batch_norm(x, weight, bias, stats, name, update_stats: bool):
 
 
 def layer_functions(precision: str):
-    """``(conv, linear, act, norm)`` for :func:`.resnet.forward`: ``conv(x,
+    """``(conv, linear, act, norm)`` for a family's ``forward``: ``conv(x,
     w, stride, padding)``, ``linear(x, w, b)``, ``act(t)``, which rounds an
     activation or a parameter where a layer takes it, and BatchNorm; None
     for the plain float32 ones."""

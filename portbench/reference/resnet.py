@@ -23,24 +23,33 @@ tensors under the names this module gives them, activations NCHW.
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
+
+from . import layers as common
+from .layers import init_std  # noqa: F401 (the family's draws)
 
 DEPTHS = {18: ("basic", (2, 2, 2, 2)), 34: ("basic", (3, 4, 6, 3)),
           50: ("bottleneck", (3, 4, 6, 3)), 101: ("bottleneck", (3, 4, 23, 3)),
           152: ("bottleneck", (3, 8, 36, 3))}
 EXPANSION = {"basic": 1, "bottleneck": 4}
-BN_EPS = 1e-5
-BN_MOMENTUM = 0.9
+BUILT = {"model.stem": "CIFAR", "model.downsample": "C", "model.convolution": "Standard",
+         "model.nonlin_fn": "ReLU", "model.normalization": "BatchNorm2d"}
 
 
-def architecture(depth: int, width: int, channels: int, classes: int, pixels: int):
-    """The layers in order: ``("conv", name, cin, cout, k, stride, h_in)``,
-    ``("bn", name, c, h)``, ``("pool", name, stride)`` and ``("fc", name,
-    cin, cout)``, grouped by block: ``[("stem", [...]), (block name,
-    {"body": [...], "shortcut": [...]}), ..., ("head", [...])]``."""
+def architecture(config: dict):
+    """The layers of ``config``'s ResNet (``model.depth``, ``model.width``,
+    ``data.channels``, ``data.classes``, ``data.pixels``) in order:
+    ``("conv", name, cin, cout, k, stride, h_in)``, ``("bn", name, c,
+    h)``, ``("pool", name, stride)`` and ``("fc", name, cin, cout)``, grouped
+    by block: ``[("stem", [...]), (block name, {"body": [...], "shortcut":
+    [...]}), ..., ("head", [...])]``."""
+    common.require(config, BUILT)
+    depth, width = int(config["model.depth"]), int(config["model.width"])
+    if depth not in DEPTHS:
+        raise ValueError(f"the reference has no ResNet of depth {depth}; it has {sorted(DEPTHS)}")
+    channels, classes = int(config["data.channels"]), int(config["data.classes"])
+    pixels = int(config["data.pixels"])
     kind, stages = DEPTHS[depth]
     expansion = EXPANSION[kind]
     # basic blocks: ``width`` is the stem's and the first stage's channels;
@@ -93,54 +102,13 @@ def layers(plan):
 
 
 def parameter_shapes(plan) -> dict:
-    """``{name: (shape, kind)}`` of every parameter, ``kind`` one of
-    ``conv`` (fan-out ``cout * k * k``), ``bn_weight``, ``bn_bias``,
-    ``fc_weight``, ``fc_bias``."""
-    shapes = {}
-    for layer in layers(plan):
-        if layer[0] == "conv":
-            _, name, cin, cout, k, _, _ = layer
-            shapes[f"{name}.weight"] = ((cout, cin, k, k), "conv")
-        elif layer[0] == "bn":
-            _, name, c, _ = layer
-            shapes[f"{name}.weight"] = ((c,), "bn_weight")
-            shapes[f"{name}.bias"] = ((c,), "bn_bias")
-        elif layer[0] == "fc":
-            _, name, cin, cout = layer
-            shapes[f"{name}.weight"] = ((cout, cin), "fc_weight")
-            shapes[f"{name}.bias"] = ((cout,), "fc_bias")
-    return shapes
+    """``{name: (shape, kind)}`` of every parameter (:func:`.layers.parameter_shapes`)."""
+    return common.parameter_shapes(layers(plan))
 
 
 def initial_stats(plan, device) -> dict:
     """Running statistics before the first step: mean 0, variance 1."""
-    stats = {}
-    for layer in layers(plan):
-        if layer[0] == "bn":
-            c = layer[2]
-            stats[f"{layer[1]}.running_mean"] = torch.zeros(c, device=device)
-            stats[f"{layer[1]}.running_var"] = torch.ones(c, device=device)
-    return stats
-
-
-def update_stats_(stats, name, mean, var, n) -> None:
-    """Move ``stats[name.*]`` towards a batch's mean and biased variance over
-    ``n`` values a channel."""
-    with torch.no_grad():
-        rm, rv = stats[f"{name}.running_mean"], stats[f"{name}.running_var"]
-        rm.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mean.detach())
-        rv.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * var.detach() * n / (n - 1))
-
-
-def batch_norm(x, weight, bias, stats, name, update_stats: bool):
-    """Train-mode BatchNorm of NCHW ``x``; moves ``stats[name.*]`` in place
-    when ``update_stats``."""
-    mean = x.mean(dim=(0, 2, 3))
-    var = x.var(dim=(0, 2, 3), unbiased=False)
-    if update_stats:
-        update_stats_(stats, name, mean, var, x.numel() / x.shape[1])
-    scale = weight * torch.rsqrt(var + BN_EPS)
-    return x * scale[None, :, None, None] + (bias - mean * scale)[None, :, None, None]
+    return common.initial_stats(layers(plan), device)
 
 
 def _run(seq, x, params, stats, update_stats, f, relu_last):
@@ -162,23 +130,15 @@ def _run(seq, x, params, stats, update_stats, f, relu_last):
     return x
 
 
-class _Functions:
-    def __init__(self, conv, linear, act, norm):
-        self.conv = conv or (lambda x, w, stride, padding: F.conv2d(x, w, None, stride, padding))
-        self.linear = linear or F.linear
-        self.act = act or (lambda t: t)
-        self.norm = norm or batch_norm
-
-
 def forward(plan, params: dict, stats: dict, x: torch.Tensor, update_stats: bool = True,
             conv=None, linear=None, act=None, norm=None) -> torch.Tensor:
     """Logits of the NCHW float images ``x``. ``conv(x, w, stride,
     padding)`` and ``linear(x, w, b)`` default to ``F.conv2d`` and
     ``F.linear``, ``act``, which a lower precision applies to every
     activation a layer puts out and to the BN parameters, to none, and
-    ``norm`` to :func:`batch_norm`; a lower precision passes its own
-    (:mod:`.precision`)."""
-    f = _Functions(conv, linear, act, norm)
+    ``norm`` to :func:`.layers.batch_norm`; a lower precision passes its
+    own (:mod:`.precision`)."""
+    f = common.Functions(conv, linear, act, norm)
     for name, group in plan:
         if name == "stem":
             x = _run(group, x, params, stats, update_stats, f, relu_last=True)
@@ -194,15 +154,7 @@ def forward(plan, params: dict, stats: dict, x: torch.Tensor, update_stats: bool
     return x
 
 
-def init_std(shape, kind) -> tuple[float, float]:
-    """``(mean, std)`` of the benchmark's draws for a parameter: He (fan-out)
-    for convolutions, ``1/sqrt(fan_in)`` for the linear weight, BN scale
-    around 1 and shifts around 0 (none zero, so every residual branch
-    carries gradient from the first step)."""
-    if kind == "conv":
-        return 0.0, math.sqrt(2.0 / (shape[0] * shape[2] * shape[3]))
-    if kind == "fc_weight":
-        return 0.0, 1.0 / math.sqrt(shape[1])
-    if kind == "bn_weight":
-        return 1.0, 0.1
-    return 0.0, 0.05
+def tiny(config: dict) -> dict:
+    """The CPU's cut: width 4, and depth 50 for a deeper bottleneck ResNet,
+    which has every kind of block that depth 101 and 152 have."""
+    return dict(config, **{"model.width": 4, "model.depth": min(int(config["model.depth"]), 50)})

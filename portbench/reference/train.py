@@ -37,8 +37,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..cells import family
 from . import precision as precision_mod
-from . import resnet
 
 FAULTS = (None, "half", "no_penalty")
 
@@ -98,14 +98,13 @@ class ReferenceTraining:
             raise ValueError(f"unknown fault {fault!r}")
         self.recipe, self.seed, self.fault = recipe, int(seed), fault
         self.device = images.device
-        self.plan = resnet.architecture(config["model.depth"], config["model.width"],
-                                        config["data.channels"], config["data.classes"],
-                                        config["data.pixels"])
+        self.family = family(config)
+        self.plan = self.family.architecture(config)
         self.dtype = dtype
         self.params = {k: v.detach().to(dtype, copy=True).requires_grad_()
                        for k, v in params.items()}
         self.stats = {k: v.to(dtype)
-                      for k, v in resnet.initial_stats(self.plan, self.device).items()}
+                      for k, v in self.family.initial_stats(self.plan, self.device).items()}
         # float32 means float32: no TF32 in convolutions or products
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -122,8 +121,8 @@ class ReferenceTraining:
         self.labels = labels[:rows].reshape(-1, sub)
 
     def loss(self, params, x, labels, update_stats):
-        logits = resnet.forward(self.plan, params, self.stats, x, update_stats, self.conv,
-                                self.linear, self.act, self.norm)
+        logits = self.family.forward(self.plan, params, self.stats, x, update_stats, self.conv,
+                                     self.linear, self.act, self.norm)
         return F.cross_entropy(logits, labels)
 
     def gradient(self, params, x, labels, update_stats):

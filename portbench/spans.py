@@ -26,7 +26,9 @@ from collections import defaultdict
 from .trace import WINDOW, _Index, is_device, merge
 
 # the port's span names; the benchmark keeps its own copy, since it also
-# runs a program that opens none of them
+# runs a program that opens none of them. It reads every host span whose
+# name starts with ``PREFIX``, these and any the port adds.
+PREFIX = "fbt."
 STAGE = "fbt.stage"
 CHUNK = "fbt.chunk"
 REGULARIZER = "fbt.regularizer"
@@ -51,9 +53,10 @@ def _innermost(flat, starts, t):
 def reduce(events) -> dict | None:
     """The program spans' summary of the window ``portbench.window`` in the
     kineto ``events``, or None where they hold no window. ``opened``
-    counts each span's occurrences, ``span_s`` their device seconds and
-    ``idle_s`` the idle seconds put down to each span, ``OUTSIDE`` and
-    ``WINDOW_END``. Times in seconds."""
+    counts each span's occurrences, ``span_s`` their device seconds (every
+    span of ``SPANS``, 0 where none opened, and every other ``PREFIX`` span
+    met) and ``idle_s`` the idle seconds put down to each span, ``OUTSIDE``
+    and ``WINDOW_END``. Times in seconds."""
     ops, device, window, opened = {}, [], None, defaultdict(list)
     for e in events:
         name = e.name()
@@ -67,7 +70,7 @@ def reduce(events) -> dict | None:
         start = e.start_ns()
         if name == WINDOW:
             window = (start, e.end_ns())
-        elif name in SPANS:
+        elif name.startswith(PREFIX):
             opened[name].append((start, e.end_ns()))
         elif e.correlation_id() not in ops or start < ops[e.correlation_id()]:
             # the profiler's own events inside an operation share its id
@@ -77,7 +80,7 @@ def reduce(events) -> dict | None:
     w0, w1 = window
     inside = sorted(d for d in device if d[1] > w0 and d[0] < w1)
     index = {name: _Index(intervals) for name, intervals in opened.items()}
-    span_s = dict.fromkeys(SPANS, 0.0)
+    span_s = dict.fromkeys([*SPANS, *opened], 0.0)
     device_s = 0.0
     for start, end, linked in inside:
         seconds = (min(end, w1) - max(start, w0)) / 1e9

@@ -3,7 +3,13 @@ name from ``BENCHMARK.json``, and the file keeps to the benchmark's rules."""
 
 from __future__ import annotations
 
+import copy
+import json
+import os
 import re
+import shutil
+import subprocess
+import sys
 
 import pytest
 
@@ -76,3 +82,118 @@ def test_readers_return_nothing_without_a_trace():
                     "bn_min_s": 1.0}}
     for m in BENCH["per_layer"]:
         assert cells.reader(m["name"])(ctx) is None
+
+
+def test_the_family_is_found_by_the_model_less_its_digits():
+    for workload in WORKLOADS:
+        config = cells.find(workload).config
+        family = cells.family(config)
+        assert family.__name__ == "portbench.reference." + config["model"].rstrip("0123456789")
+        assert all(callable(getattr(family, f)) for f in cells.FAMILY)
+
+
+def test_a_model_with_no_reference_is_refused_when_the_cell_is_found(tmp_path):
+    bench = copy.deepcopy(BENCH)
+    workload = bench["workloads"][0]
+    entry = next(c for c in bench["configs"] if c["name"] == workload["config"])
+    config = dict(cells.load_json(cells.ROOT / entry["file"]), model="nosuchnet50")
+    entry["file"] = "nosuchnet50.json"
+    (tmp_path / "nosuchnet50.json").write_text(json.dumps(config))
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    with pytest.raises(FileNotFoundError, match="portbench/reference/nosuchnet.py"):
+        cells.find(workload["name"], root=tmp_path)
+
+
+PLAINNET = '''"""A plain net: a 3x3 convolution, BatchNorm, ReLU, global pool, linear."""
+
+import torch.nn.functional as F
+
+from . import layers as common
+from .layers import init_std  # noqa: F401
+
+
+def architecture(config):
+    c, h = int(config["model.width"]), int(config["data.pixels"])
+    return [("conv", "conv", int(config["data.channels"]), c, 3, 1, h), ("bn", "bn", c, h),
+            ("fc", "fc", c, int(config["data.classes"]))]
+
+
+def layers(plan):
+    yield from plan
+
+
+def parameter_shapes(plan):
+    return common.parameter_shapes(plan)
+
+
+def initial_stats(plan, device):
+    return common.initial_stats(plan, device)
+
+
+def forward(plan, params, stats, x, update_stats=True, conv=None, linear=None, act=None,
+            norm=None):
+    f = common.Functions(conv, linear, act, norm)
+    x = f.conv(x, params["conv.weight"], 1, 1)
+    x = F.relu(f.act(f.norm(x, params["bn.weight"], params["bn.bias"], stats, "bn",
+                            update_stats)))
+    return f.linear(f.act(x.mean(dim=(2, 3))), params["fc.weight"], params["fc.bias"])
+
+
+def tiny(config):
+    return dict(config, **{"model.width": 4})
+'''
+
+FAMILY_RUN = '''
+import json, sys, torch
+sys.path.insert(0, ".")
+from portbench import cells, compare, inputs, work
+from portbench.tests.tiny import SEED, tiny
+cell = tiny("plainnet3-cifar10.gradreg-c512", float64=True)
+cpu = torch.device("cpu")
+images, labels = inputs.images_and_labels(cell.config, SEED, cpu)
+weights = inputs.weights(cell.config, SEED, cpu)
+ref = compare.reference_readings(cell, images, labels, weights, SEED, 2)
+print(json.dumps({"family": cells.family(cell.config).__file__,
+                  "work": work.step_work(cell.config, cell.traffic["recipe"]),
+                  "weights": {k: list(v.shape) for k, v in weights.items()},
+                  "loss": ref["loss"], "change": ref["change"]}))
+'''
+
+
+def test_a_family_is_added_by_new_files_alone(tmp_path):
+    """A copy of the benchmark takes a new family, ``plainnet``, from one
+    new module under ``reference/``, a configuration, a limits file and
+    two entries of ``BENCHMARK.json``; no file of the benchmark changes.
+    Its cell is found, cut, counted, drawn and run by the reference."""
+    shutil.copytree(cells.HERE, tmp_path / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    before = {p: p.read_bytes() for p in (tmp_path / "portbench").rglob("*") if p.is_file()}
+    pb = tmp_path / "portbench"
+    (pb / "reference" / "plainnet.py").write_text(PLAINNET)
+    base = cells.find(WORKLOADS[0]).config
+    config = {"name": "plainnet3-cifar10", "model": "plainnet3", "data": "CIFAR10",
+              "model.width": 16, **{k: v for k, v in base.items() if k.startswith("data.")}}
+    (pb / "configs" / "plainnet3-cifar10.json").write_text(json.dumps(config))
+    (pb / "limits" / "plainnet3-cifar10.gradreg-c512.json").write_text('{"loss0_gap": 1e-5}')
+    bench = copy.deepcopy(BENCH)
+    bench["configs"].append({"name": "plainnet3-cifar10", "source": "a test",
+                             "file": "portbench/configs/plainnet3-cifar10.json", "reduced": [],
+                             "why": "a test"})
+    bench["workloads"].append({"name": "plainnet3-cifar10.gradreg-c512",
+                               "config": "plainnet3-cifar10", "traffic": "gradreg-c512",
+                               "chips": 1, "why": "a test"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    out = subprocess.run([sys.executable, "-c", FAMILY_RUN], cwd=tmp_path, capture_output=True,
+                         text=True, timeout=300, env={**os.environ, "OMP_NUM_THREADS": "2"})
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.splitlines()[-1])
+    assert got["family"] == str(pb / "reference" / "plainnet.py")
+    assert got["weights"] == {"conv.weight": [4, 3, 3, 3], "bn.weight": [4], "bn.bias": [4],
+                              "fc.weight": [10, 4], "fc.bias": [10]}
+    # 64 images, two passes; the convolution takes no input gradient
+    forward = 4 * 3 * 9 * 32 * 32 + 4 * 10
+    assert got["work"]["model_flops"] == 2 * 2 * 64 * (3 * forward - 4 * 3 * 9 * 32 * 32)
+    assert got["work"]["bn_bytes"] == 2 * 5 * 64 * 32 * 32 * 4 * 4     # float32 counts
+    assert len(got["loss"]) == 2 and all(v > 0 for v in got["change"].values())
+    after = {p: p.read_bytes() for p in before}
+    assert after == before

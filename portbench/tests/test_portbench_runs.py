@@ -14,12 +14,14 @@ import time
 import pytest
 import torch
 
-from portbench import compare, harness, inputs
+from portbench import cells, compare, harness, inputs
 from portbench.run import forbidden_modules
 from portbench.tests.tiny import SEED, tiny
+from portbench.tests.tiny import WORKLOADS as CELLS
 
 CPU = torch.device("cpu")
-CELLS = ["r18-cifar10.fb1-c4096", "r152-cifar10.gradreg-c512"]
+PENALISED = [w for w in CELLS
+             if float(cells.find(w).traffic["recipe"].get("hyp.grad_reg.block_strength") or 0)]
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
@@ -51,11 +53,12 @@ def test_a_step_that_leaves_the_state_unchanged_is_caught(workload, monkeypatch)
         assert result["readings"][number]["value"] == pytest.approx(1.0)
 
 
-def test_the_gradient_penalty_left_out_is_caught(monkeypatch):
+@pytest.mark.parametrize("workload", PENALISED)
+def test_the_gradient_penalty_left_out_is_caught(workload, monkeypatch):
     from fullbatchtraining_tpu_torch.training import training
     monkeypatch.setattr(training, "make_grad_regularizer",
                         lambda cfg, grad_fn: lambda grads, *args: grads)
-    cell = tiny("r152-cifar10.gradreg-c512", float64=True)
+    cell = tiny(workload, float64=True)
     result = run(cell)
     assert not result["correct"]
     # the penalty's forward moves no running statistic and comes after the loss
@@ -122,9 +125,9 @@ def test_a_run_loads_nothing_of_jax():
             "from portbench import harness\n"
             "from portbench.run import forbidden_modules\n"
             "from portbench.tests.tiny import SEED, tiny\n"
-            "harness.run_cell(tiny('r18-cifar10.fb1-c4096'), SEED, 0.1, True,"
+            "harness.run_cell(tiny(%r), SEED, 0.1, True,"
             " torch.device('cpu'), time.perf_counter)\n"
-            "print(forbidden_modules())\n") % ROOT
+            "print(forbidden_modules())\n") % (ROOT, CELLS[0])
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=300, env={**os.environ, "OMP_NUM_THREADS": "2"})
     assert out.returncode == 0, out.stderr[-2000:]

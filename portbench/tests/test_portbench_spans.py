@@ -14,7 +14,7 @@ READERS = ("chunk_idle_share", "regularizer_idle_share", "step_edge_idle_share",
 
 class Event(TraceEvent):
     def is_user_annotation(self):
-        return self.name() in spans.SPANS or super().is_user_annotation()
+        return self.name().startswith(spans.PREFIX) or super().is_user_annotation()
 
 
 def program_spans():
@@ -125,3 +125,38 @@ def test_the_names_are_the_ports():
     from fullbatchtraining_tpu_torch import tracing
 
     assert spans.SPANS == tracing.SPANS
+
+
+def test_a_span_the_benchmark_does_not_know_is_read():
+    """A later span of the port (``fbt.extra``, around the update's launch
+    at 720) gets its device time and the idle gap its launch ends; the
+    seven known spans stay, ``fbt.modify_gradient`` at 0."""
+    extra = [Event("fbt.extra", 715, 790, corr=200), Event("fbt.extra", 720, 795, device=True,
+                                                           corr=200)]
+    s = spans.reduce(work() + program_spans() + extra)
+    assert s["opened"]["fbt.extra"] == 1
+    assert s["span_s"]["fbt.extra"] == pytest.approx(50e-9)
+    assert s["idle_s"]["fbt.extra"] == pytest.approx(30e-9)     # innermost at the launch
+    assert spans.UPDATE not in s["idle_s"]
+    assert s["span_s"][spans.UPDATE] == pytest.approx(50e-9)
+    assert set(spans.SPANS) < set(s["span_s"]) and s["span_s"][spans.MODIFY_GRADIENT] == 0.0
+    assert s == spans.reduce(extra + program_spans() + work())
+
+
+def test_the_harness_hands_the_readers_the_spans(monkeypatch):
+    """``traced_steps`` reduces the same events for the trace and the spans."""
+    from portbench import harness
+    from portbench.tests.test_portbench_runs import run
+    from portbench.tests.tiny import WORKLOADS, tiny
+
+    seen, reduced = [], []
+    for module in (spans, trace):
+        def wrapped(events, *args, _reduce=module.reduce, **kwargs):
+            seen.append(events)
+            reduced.append(_reduce(events, *args, **kwargs))
+            return reduced[-1]
+        monkeypatch.setattr(module, "reduce", wrapped)
+    result = run(tiny(WORKLOADS[0], float64=True), traced=True)
+    assert len(seen) == 2 and seen[0] is seen[1]
+    assert reduced[0]["spans"] is reduced[1]
+    assert result["correct"]

@@ -3,7 +3,8 @@
 Operations count a multiply-add as two. Per pass over a chunk of ``b``
 images every convolution and the linear layer run forward, take the
 gradient of their weights, and pass the gradient to their input, except the
-stem's, whose input is the image. A forward-difference gradient penalty
+first convolution, whose input is the image. The layers are the model
+family's (:func:`.cells.family`). A forward-difference gradient penalty
 runs a second such pass a chunk. Bytes count each operand read once and
 each result written once: a convolution's input, weight and output; a
 train-mode BatchNorm's forward reads ``x`` and writes ``y``, its backward
@@ -12,7 +13,7 @@ reads ``x`` and ``dy`` and writes ``dx``.
 
 from __future__ import annotations
 
-from .reference import resnet
+from .cells import family
 
 # NVIDIA H100 SXM data sheet, dense, at its 700 W limit
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
@@ -28,17 +29,17 @@ def compute_dtype(recipe: dict) -> str:
     return "bfloat16" if recipe.get("impl.mixed_precision") else "float32"
 
 
-def plan_of(config: dict):
-    return resnet.architecture(config["model.depth"], config["model.width"],
-                               config["data.channels"], config["data.classes"],
-                               config["data.pixels"])
+def model_layers(config: dict):
+    """Every layer of ``config``'s model in order, flat."""
+    reference = family(config)
+    return reference.layers(reference.architecture(config))
 
 
 def forward_macs(config: dict) -> int:
     """Multiply-adds of one image's forward through the convolutions and the
     linear layer."""
     total = 0
-    for layer in resnet.layers(plan_of(config)):
+    for layer in model_layers(config):
         if layer[0] == "conv":
             _, _, cin, cout, k, stride, h = layer
             total += cout * cin * k * k * (h // stride) ** 2
@@ -68,15 +69,17 @@ def step_work(config: dict, recipe: dict) -> dict:
     peak, item = PEAK_FLOPS[dtype], ITEMSIZE[dtype]
     chunks, b = layout(config, recipe)
     conv_flops = conv_min = fc_flops = bn_bytes = 0.0
-    for layer in resnet.layers(plan_of(config)):
+    first = True
+    for layer in model_layers(config):
         if layer[0] == "conv":
-            _, name, cin, cout, k, stride, h = layer
+            _, _, cin, cout, k, stride, h = layer
             h_out = h // stride
             x, w, y = b * cin * h * h, cout * cin * k * k, b * cout * h_out * h_out
             flops = 2.0 * w * b * h_out * h_out
             ops = [(flops, x + w + y), (flops, x + y + w)]      # forward, weight gradient
-            if name != "stem_conv1":
+            if not first:
                 ops.append((flops, y + w + x))                # input gradient
+            first = False
             for f, nbytes in ops:
                 conv_flops += f
                 conv_min += max(f / peak, nbytes * item / HBM_BYTES_PER_S)
